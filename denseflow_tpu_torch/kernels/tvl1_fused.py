@@ -1,0 +1,265 @@
+"""One TVL1 pyramid scale per frame pair: the hand-written CUDA kernel
+(`csrc/tvl1_scale.cu`) and its plain PyTorch version.
+
+Both compute what the JAX package's Pallas kernel
+`denseflow_tpu/kernels/tvl1_fused.py::tvl1_scale_fused` computes (its body
+`_make_kernel`), not what its XLA path does: the warp is two separable 1-D
+bicubic passes (rows at u2, then columns at u1), the epsilon stop is tested
+every `check_every` iterations, and a warp that converges in its first
+check block ends the pair's warp loop.
+
+The JAX package tiles planes whose working set exceeds VMEM
+(`tvl1_scale_fused_tiled`, `plan_tiles`); its 256x341 bench geometry takes
+the untiled branch. Hopper has no VMEM limit to fit, so this port computes
+the untiled answer at every geometry and ports no tiling.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+_GRAD_EPS = 1.1920929e-07  # numeric_limits<float>::epsilon(), OpenCV's guard
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to float32, as the kernel receives it."""
+    return float(np.float32(x))
+
+
+def _threshold(epsilon: float, h: int, w: int) -> float:
+    """The stop threshold eps^2*h*w in float32; -1 disables the stop."""
+    return _f32(epsilon * epsilon * h * w) if epsilon > 0 else -1.0
+
+
+def _cubic(x: torch.Tensor) -> torch.Tensor:
+    """Cubic-convolution kernel, a=-0.75 (OpenCV INTER_CUBIC), support (-2,2)."""
+    a = -0.75
+    ax = torch.abs(x)
+    ax2 = ax * ax
+    ax3 = ax2 * ax
+    inner = (a + 2.0) * ax3 - (a + 3.0) * ax2 + 1.0
+    outer = a * (ax3 - 5.0 * ax2 + 8.0 * ax - 4.0)
+    return torch.where(ax < 1.0, inner, torch.where(ax < 2.0, outer, 0.0))
+
+
+def _resample3(planes, disp: torch.Tensor, dim: int, max_disp: float):
+    """1-D cubic resample of three (B, H, W) planes along `dim` (1 = rows,
+    2 = columns) at per-pixel displacement `disp`, clamped to +-max_disp,
+    with positions and taps clamped to the image (replicate borders). The
+    four taps floor(pos)-1 .. floor(pos)+2 are summed in ascending order,
+    which is the order of the Pallas kernel's roll sweep."""
+    n = disp.shape[dim]
+    shape = [1, 1, 1]
+    shape[dim] = n
+    coords = torch.arange(n, dtype=torch.float32, device=disp.device).reshape(shape)
+    d = torch.clamp(disp, -max_disp, max_disp)
+    pos = torch.clamp(coords + d, 0.0, float(n - 1))
+    d = pos - coords
+    fl = torch.floor(pos)
+    outs = [torch.zeros_like(disp) for _ in planes]
+    for m in range(4):
+        t = fl + float(m - 1)
+        c = _cubic(d - (t - coords))
+        idx = torch.clamp(t, 0.0, float(n - 1)).to(torch.int64)
+        for k, p in enumerate(planes):
+            outs[k] = outs[k] + c * torch.gather(p, dim, idx)
+    return outs
+
+
+def _div(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Backward divergence (adjoint of the forward gradient), (B, H, W)."""
+    dpx = torch.cat([p1[:, :, :1], p1[:, :, 1:] - p1[:, :, :-1]], dim=2)
+    dpy = torch.cat([p2[:, :1, :], p2[:, 1:, :] - p2[:, :-1, :]], dim=1)
+    return dpx + dpy
+
+
+def _fgx(u: torch.Tensor) -> torch.Tensor:
+    return torch.cat([u[:, :, 1:] - u[:, :, :-1], torch.zeros_like(u[:, :, :1])], dim=2)
+
+
+def _fgy(u: torch.Tensor) -> torch.Tensor:
+    return torch.cat([u[:, 1:, :] - u[:, :-1, :], torch.zeros_like(u[:, :1, :])], dim=1)
+
+
+def tvl1_scale_reference(
+    I0: torch.Tensor,
+    I1: torch.Tensor,
+    I1x: torch.Tensor,
+    I1y: torch.Tensor,
+    u1: torch.Tensor,
+    u2: torch.Tensor,
+    *,
+    l_t: float,
+    theta: float,
+    taut: float,
+    epsilon: float,
+    iterations: int,
+    warps: int,
+    max_disp: float,
+    check_every: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, on (B, H, W) float32 tensors.
+
+    Pairs advance in lockstep, and a pair that has stopped is held
+    unchanged with a mask, so each pair's result is what it would be
+    alone. Returns (u1, u2, counts): counts is (B, 2) int32 holding the
+    iterations and the warps each pair ran."""
+    b, h, w = u1.shape
+    dev = u1.device
+    l_t, theta, taut = _f32(l_t), _f32(theta), _f32(taut)
+    max_disp = _f32(max_disp)
+    thresh = _threshold(epsilon, h, w)
+    p11, p12, p21, p22 = (torch.zeros_like(u1) for _ in range(4))
+    counts = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+    warp_on = torch.ones(b, dtype=torch.bool, device=dev)
+    for _ in range(warps):
+        if not bool(warp_on.any()):
+            break
+        t1, t1x, t1y = _resample3((I1, I1x, I1y), u2, 1, max_disp)
+        I1w, I1wx, I1wy = _resample3((t1, t1x, t1y), u1, 2, max_disp)
+        grad = I1wx * I1wx + I1wy * I1wy
+        rho_c = I1w - I1wx * u1 - I1wy * u2 - I0
+        fi = l_t * grad
+        nfi = -fi
+        rg = torch.where(
+            grad > _GRAD_EPS, 1.0 / torch.clamp(grad, min=_GRAD_EPS), 0.0
+        )
+        n_run = torch.zeros(b, dtype=torch.int32, device=dev)
+        err = torch.full((b,), float("inf"), dtype=torch.float32, device=dev)
+        active = warp_on.clone()
+        n = 0
+        while n < iterations:
+            active = active & (err > thresh)
+            if not bool(active.any()):
+                break
+            keep = active[:, None, None]
+            for k in range(check_every):
+                rho = rho_c + I1wx * u1 + I1wy * u2
+                mul = torch.where(
+                    rho < nfi, l_t, torch.where(rho > fi, -l_t, -rho * rg)
+                )
+                v1 = u1 + mul * I1wx
+                v2 = u2 + mul * I1wy
+                u1n = torch.where(keep, v1 + theta * _div(p11, p12), u1)
+                u2n = torch.where(keep, v2 + theta * _div(p21, p22), u2)
+                if k == check_every - 1:
+                    e = (u1n - u1) ** 2 + (u2n - u2) ** 2
+                    err = torch.where(active, e.reshape(b, -1).sum(1), err)
+                u1, u2 = u1n, u2n
+                g1x, g1y, g2x, g2y = _fgx(u1), _fgy(u1), _fgx(u2), _fgy(u2)
+                r1 = 1.0 / (1.0 + taut * torch.sqrt(g1x * g1x + g1y * g1y))
+                r2 = 1.0 / (1.0 + taut * torch.sqrt(g2x * g2x + g2y * g2y))
+                p11 = torch.where(keep, (p11 + taut * g1x) * r1, p11)
+                p12 = torch.where(keep, (p12 + taut * g1y) * r1, p12)
+                p21 = torch.where(keep, (p21 + taut * g2x) * r2, p21)
+                p22 = torch.where(keep, (p22 + taut * g2y) * r2, p22)
+            n += check_every
+            n_run += active.to(torch.int32) * check_every
+        counts[:, 0] += n_run
+        counts[:, 1] += warp_on.to(torch.int32)
+        # early exit: the warp converged in its first check block
+        converged = (n_run <= check_every) & (err <= thresh)
+        warp_on = warp_on & ~converged
+    return u1, u2, counts
+
+
+def _check_args(planes, check_every: int) -> None:
+    u1 = planes[4]
+    if u1.dim() != 3:
+        raise ValueError(f"tvl1_scale takes (B, H, W) planes, got {tuple(u1.shape)}")
+    for p in planes:
+        if p.shape != u1.shape:
+            raise ValueError(f"tvl1_scale: shape {tuple(p.shape)} != {tuple(u1.shape)}")
+        if p.dtype != torch.float32:
+            raise ValueError(f"tvl1_scale takes float32, got {p.dtype}")
+        if p.device != u1.device:
+            raise ValueError("tvl1_scale: planes lie on different devices")
+        if not p.is_contiguous():
+            raise ValueError("tvl1_scale takes contiguous planes")
+    if check_every < 1:
+        raise ValueError("check_every must be >= 1")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from denseflow_tpu_torch.kernels import _build
+
+    lib = _build.load("tvl1_scale")
+    lib.tvl1_scale_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
+    lib.tvl1_scale_launch.restype = ctypes.c_int
+    lib.tvl1_scale_scratch_planes.argtypes = []
+    lib.tvl1_scale_scratch_planes.restype = ctypes.c_int
+    return lib
+
+
+def _launch(I0, I1, I1x, I1y, u1, u2, l_t, theta, taut, epsilon,
+            iterations, warps, max_disp, check_every):
+    lib = _lib()
+    planes = (I0, I1, I1x, I1y, u1, u2)
+    b, h, w = u1.shape
+    u1o = torch.empty_like(planes[4])
+    u2o = torch.empty_like(planes[4])
+    counts = torch.empty((b, 2), dtype=torch.int32, device=u1.device)
+    if b == 0:
+        return u1o, u2o, counts
+    scratch = torch.empty(
+        (b, lib.tvl1_scale_scratch_planes(), h, w), dtype=torch.float32,
+        device=u1.device,
+    )
+    stream = torch.cuda.current_stream(u1.device).cuda_stream
+    rc = lib.tvl1_scale_launch(
+        *(p.data_ptr() for p in planes), u1o.data_ptr(), u2o.data_ptr(),
+        scratch.data_ptr(), counts.data_ptr(), b, h, w,
+        _f32(l_t), _f32(theta), _f32(taut), _threshold(epsilon, h, w),
+        _f32(max_disp), int(iterations), int(warps), int(check_every), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"tvl1_scale kernel launch failed: CUDA error {rc}")
+    tvl1_scale.launches += 1
+    return u1o, u2o, counts
+
+
+def tvl1_scale(
+    I0: torch.Tensor,
+    I1: torch.Tensor,
+    I1x: torch.Tensor,
+    I1y: torch.Tensor,
+    u1: torch.Tensor,
+    u2: torch.Tensor,
+    *,
+    l_t: float,
+    theta: float,
+    taut: float,
+    epsilon: float,
+    iterations: int,
+    warps: int,
+    max_disp: float,
+    check_every: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All warps x iterations of one pyramid scale for each pair.
+
+    Planes are (B, H, W) float32 on one device. On a CUDA device this
+    launches the kernel (and counts the launch in `tvl1_scale.launches`);
+    on the CPU it runs `tvl1_scale_reference`. Returns (u1, u2, counts),
+    counts (B, 2) int32 = iterations and warps each pair ran."""
+    planes = (I0, I1, I1x, I1y, u1, u2)
+    _check_args(planes, check_every)
+    kw = dict(l_t=l_t, theta=theta, taut=taut, epsilon=epsilon,
+              iterations=iterations, warps=warps, max_disp=max_disp,
+              check_every=check_every)
+    if u1.device.type == "cpu":
+        return tvl1_scale_reference(*planes, **kw)
+    if u1.device.type != "cuda":
+        raise ValueError(f"tvl1_scale runs on cuda or cpu, not {u1.device}")
+    return _launch(*planes, **kw)
+
+
+tvl1_scale.launches = 0
