@@ -5,8 +5,8 @@
 Phases (each prints its lines; any failure exits non-zero):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build every kernel of the main path from csrc/ (one nvcc per source,
-   started together) and print the build time;
+2. build every kernel from csrc/ (one nvcc per source, started together)
+   and print the build time;
 3. each kernel against its plain PyTorch version, on the card: at every
    pyramid scale of one main-path slab (16 pairs of the bench video,
    decoded and resized to 256x341 by the port's reader, through the port's
@@ -19,10 +19,23 @@ Phases (each prints its lines; any failure exits non-zero):
    `-a=tvl1 -s=1 -b=20 -st=jpg -ns=256 --strict` on a 500-frame 360x480
    MJPG, with the kernels' launch counts set to 0 before it and read after;
 6. auto-escalation: motion past the default 40 px clamp makes the pipeline
-   re-solve at maxDisp 80 and 1020 and track it.
+   re-solve at maxDisp 80 and 1020 and track it;
+7. Farneback's two kernels against their plain versions, as in phase 3:
+   every call of one farn slab of the same 16 pairs (six levels), timed
+   beside their bounds and, for `poly_expand`, beside one
+   `torch.nn.functional.conv2d` that computes the same function; then an
+   odd shape, the coarsest level (8x11) and a flow past the clamp, each
+   pair alone against its batch; and the slab run again with TF32 switched
+   on by the caller, which must give the same bytes;
+8. Farneback fidelity at full width: mean EPE <= 0.5 px on three analytic
+   goldens (tests/test_fidelity.py:52-64) and the cv2 gate
+   (tests/test_solvers.py:91-98);
+9. the farn path end to end, as phase 5:
+   `-a=farn -s=1 -b=20 -st=jpg -ns=256 --strict`.
 
 The last three lines are the card's name and power limit, the kernels'
-JSON record and {"ok": true, "device": {...}}. Without a CUDA device, or
+JSON record (each kernel's launches counted on its own path's run) and
+{"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script exits non-zero and prints no
 result. It imports neither jax nor denseflow_tpu.
 """
@@ -45,6 +58,7 @@ CHUNK_FRAMES = 128  # FlowConfig.chunk_frames, the main path's default
 PAIR_BATCH = 16  # FlowConfig.pair_batch, the main path's default
 GATE = 0.5  # px, mean EPE (tests/test_fidelity.py)
 KERNEL_TOL = 1e-3  # px, mean |du| of the kernel vs its plain version
+POLY_TOL = 1e-3  # max |d| of the poly_expand coefficients vs the plain version
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -56,6 +70,16 @@ F32_FLOPS = 67e12
 # 4-tap bicubic passes of ~110 each plus ~14 for the warp constants).
 OPS_PER_PX_ITER = 53
 OPS_PER_PX_WARP = 235
+
+# f32 operations per pixel of Farneback's kernels, counted from
+# csrc/farneback_polyexp.cu (poly_n = 5, 11 taps: the vertical pass 3 x 21,
+# the horizontal passes 6 x 21, the combination 13) and csrc/farneback_level.cu
+# (one iteration: update 163 = three linear tap setups 66, the five-plane
+# warp 60, normal equations 37; the vertical and horizontal 13-tap box sums
+# 85 each; the solve and the stop sum 19).
+OPS_PER_PX_POLY = 202
+OPS_PER_PX_LEVEL_ITER = 352
+CV2_GATE = (0.02, 0.05)  # px, interior and whole mean EPE vs OpenCV
 
 
 def log(msg: str) -> None:
@@ -295,45 +319,52 @@ def main_path_slabs() -> int:
     return slabs
 
 
-def phase_main_path(video: Path, work: Path, card: str) -> dict:
-    """The main path through the CLI's run(); returns launches per kernel."""
+def phase_main_path(video: Path, work: Path, card: str, algorithm: str,
+                    kernels: dict) -> dict:
+    """A main path through the CLI's run(), `-a=<algorithm>`; `kernels`
+    maps each kernel of that path to its wrapper. Returns launches per
+    kernel, counted from 0 over this run."""
     import cv2
 
     from denseflow_tpu_torch.cli import parse_args, run
-    from denseflow_tpu_torch.kernels.tvl1_fused import tvl1_scale
 
-    cfg = parse_args([str(video), f"-o={work / 'out'}", "-a=tvl1", "-s=1",
+    tag = f"[main {algorithm}]"
+    out_root = work / f"out_{algorithm}"
+    cfg = parse_args([str(video), f"-o={out_root}", f"-a={algorithm}", "-s=1",
                       "-b=20", "-st=jpg", "-ns=256", "--strict",
                       f"--device={DEVICE}"])
     stats: dict = {}
-    tvl1_scale.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     rc = run(cfg, stats_out=stats)
-    launches = {"tvl1_scale": tvl1_scale.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     if rc != 0 or stats["errors"]:
-        raise SystemExit(f"main path failed: rc {rc}, errors {stats['errors']}")
-    out = work / "out" / video.stem
+        raise SystemExit(f"{algorithm} main path failed: rc {rc}, errors {stats['errors']}")
+    out = out_root / video.stem
     fx = sorted(out.glob("flow_x_*.jpg"))
     fy = sorted(out.glob("flow_y_*.jpg"))
     n_flows = stats["counters"].total_flows
     slabs = main_path_slabs()
-    log(f"[main] rc {rc}; {len(fx)} flow_x + {len(fy)} flow_y jpgs; "
+    log(f"{tag} rc {rc}; {len(fx)} flow_x + {len(fy)} flow_y jpgs; "
         f"{n_flows} flows in {stats['wall_s']:.6g} s = "
         f"{n_flows / stats['wall_s']:.6g} flows/s end to end; stage times "
         + ", ".join(f"{k} {v:.6g} s" for k, v in sorted(stats["stage_times"].items()))
-        + f"; tvl1_scale launches {launches['tvl1_scale']} over {slabs} slabs "
-        f"({launches['tvl1_scale'] / slabs:.3g} per slab); {card}")
+        + "; " + ", ".join(f"{k} launches {v} over {slabs} slabs ({v / slabs:.3g} per slab)"
+                           for k, v in launches.items())
+        + f"; {card}")
     n_want = N_FRAMES - 1
     if len(fx) != n_want or len(fy) != n_want or n_flows != n_want:
-        raise SystemExit(f"main path did not write {n_want} + {n_want} flow jpgs")
-    if launches["tvl1_scale"] <= 0:
-        raise SystemExit("main path never launched tvl1_scale")
+        raise SystemExit(f"{algorithm} main path did not write {n_want} + {n_want} flow jpgs")
+    for name, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"{algorithm} main path never launched {name}")
     # content moves -2 px/frame at width 480: -2*341/480 px at 341
     want_x = 255.0 * (-2.0 * 341 / 480 + 20) / 40
     want_y = 127.5
     for i in (n_want // 5, n_want // 2, 4 * n_want // 5):
         gx = cv2.imread(str(fx[i]), cv2.IMREAD_GRAYSCALE)[20:-20, 20:-20].mean()
         gy = cv2.imread(str(fy[i]), cv2.IMREAD_GRAYSCALE)[20:-20, 20:-20].mean()
-        log(f"[main] {fx[i].name}: centre flow_x {gx:.2f} (want {want_x:.2f}), "
+        log(f"{tag} {fx[i].name}: centre flow_x {gx:.2f} (want {want_x:.2f}), "
             f"flow_y {gy:.2f} (want {want_y})")
         if abs(gx - want_x) > 3 or abs(gy - want_y) > 3:
             raise SystemExit("decoded flow does not match the content's motion")
@@ -379,6 +410,272 @@ def phase_escalation(work: Path) -> None:
         raise SystemExit("auto-escalation did not re-solve and track the motion")
 
 
+# ---------------- Farneback ----------------
+
+def poly_bound_ms(nb: int, h: int, w: int):
+    """(bytes time, operations time) in ms of one poly_expand call: the
+    images read once and the five coefficient planes written once."""
+    px = nb * h * w
+    return (px * 6 * 4 / HBM_BYTES_PER_S * 1e3,
+            px * OPS_PER_PX_POLY / F32_FLOPS * 1e3)
+
+
+def level_bound_ms(iters, h: int, w: int):
+    """(bytes time, operations time) in ms of one farneback_level call:
+    R0, R1, u, v read once and u, v written once (14 planes a pair), and
+    the iterations these pairs ran (`iters`)."""
+    nbytes = iters.shape[0] * 14 * h * w * 4
+    ops = float(iters.double().sum()) * h * w * OPS_PER_PX_LEVEL_ITER
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def poly_conv2d_weight(n: int, sigma: float):
+    """The (5, 1, 2n+1, 2n+1) float32 weight of one conv2d that computes
+    poly_expand on the replicate-padded image: the expansion is linear, so
+    the separable projections and the inverse normal matrix fold into one
+    filter per coefficient (rows = the vertical taps)."""
+    import torch
+
+    from denseflow_tpu_torch.kernels.farneback_fused import _polyexp_consts
+
+    (g, xg, xxg, ig), _ = _polyexp_consts(n, sigma)
+    g, xg, xxg, ig = (a.astype(np.float64) for a in (g, xg, xxg, ig))
+    o = np.outer
+    wts = np.stack([
+        ig[1, 1] * o(g, xg),  # bx  <- Sx
+        ig[2, 2] * o(xg, g),  # by  <- Sy
+        ig[3, 0] * o(g, g) + ig[3, 3] * o(g, xxg) + ig[3, 4] * o(xxg, g),  # cxx
+        ig[4, 0] * o(g, g) + ig[4, 3] * o(g, xxg) + ig[4, 4] * o(xxg, g),  # cyy
+        ig[5, 5] * o(xg, xg),  # cxy <- Sxy
+    ])[:, None].astype(np.float32)
+    return torch.from_numpy(wts).to(DEVICE)
+
+
+def _compare_poly(name, img, n, sigma) -> "tuple":
+    """poly_expand vs poly_expand_reference on the same card tensor;
+    returns (kernel out, max |d|) and fails over POLY_TOL."""
+    import torch
+
+    from denseflow_tpu_torch.kernels.farneback_fused import poly_expand, poly_expand_reference
+
+    k = poly_expand(img, n, sigma)
+    r = poly_expand_reference(img, n, sigma)
+    torch.cuda.synchronize()
+    max_d = float((k - r).abs().max())
+    log(f"[kernel] poly_expand {name}: max|d| {max_d:.3g} (limit {POLY_TOL}); "
+        f"bit-equal {torch.equal(k, r)}")
+    if not (max_d <= POLY_TOL):
+        raise SystemExit(f"poly_expand disagrees with its plain version on {name}")
+    return k, max_d
+
+
+def _compare_level(name, args, kw) -> "tuple":
+    """farneback_level vs farneback_level_reference on the same card
+    tensors; returns (kernel out, max |du|) and fails over KERNEL_TOL."""
+    import torch
+
+    from denseflow_tpu_torch.kernels.farneback_fused import (
+        farneback_level,
+        farneback_level_reference,
+    )
+
+    k = farneback_level(*args, **kw)
+    r = farneback_level_reference(*args, **kw)
+    torch.cuda.synchronize()
+    du = torch.cat([(k[0] - r[0]).abs().flatten(), (k[1] - r[1]).abs().flatten()])
+    mean_d, max_d = float(du.mean()), float(du.max())
+    log(f"[kernel] farneback_level {name}: mean|du| {mean_d:.3g} px, max|du| "
+        f"{max_d:.3g} px (limit mean {KERNEL_TOL}); iterations kernel "
+        f"{k[2].tolist()} plain {r[2].tolist()}")
+    if not (mean_d <= KERNEL_TOL):
+        raise SystemExit(f"farneback_level disagrees with its plain version on {name}")
+    return k, max_d
+
+
+def phase_farn_kernels(video: Path, card: str) -> list:
+    """poly_expand and farneback_level (CUDA) vs their plain versions on
+    the card, at every call of one farn slab and in the extra cases."""
+    import torch
+    import torch.nn.functional as F
+
+    import denseflow_tpu_torch.algorithms.farneback as fb
+    from denseflow_tpu_torch.kernels.farneback_fused import (
+        farneback_level,
+        farneback_level_reference,
+        poly_expand,
+        poly_expand_reference,
+    )
+
+    dev = torch.device(DEVICE)
+    p = fb.FarnebackParams()
+    n, sigma = p.poly_n, p.poly_sigma
+    poly_calls, level_calls = [], []
+
+    def cap_poly(*args, **kw):
+        poly_calls.append((args, kw))
+        return poly_expand(*args, **kw)
+
+    def cap_level(*args, **kw):
+        level_calls.append((args, kw))
+        return farneback_level(*args, **kw)
+
+    I0u, I1u = main_path_slab(video)
+    I0 = torch.from_numpy(I0u).to(dev, torch.float32)
+    I1 = torch.from_numpy(I1u).to(dev, torch.float32)
+    fb.poly_expand, fb.farneback_level = cap_poly, cap_level
+    try:
+        flow = fb.farneback_flow(I0, I1, p)
+    finally:
+        fb.poly_expand, fb.farneback_level = poly_expand, farneback_level
+    weight = poly_conv2d_weight(n, sigma)
+    tot = {k: dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, t_bytes=0.0, t_ops=0.0)
+           for k in ("poly", "level")}
+    worst = {"poly": 0.0, "level": 0.0}
+    for (img, *rest), kw in poly_calls:
+        nb, h, w = img.shape
+        k, max_d = _compare_poly(f"main path {h}x{w} N={nb}", img, *rest, **kw)
+        worst["poly"] = max(worst["poly"], max_d)
+        padded = F.pad(img[:, None], (n, n, n, n), mode="replicate")
+        lib = F.conv2d(padded, weight)
+        lib_d = float((lib - k).abs().max())
+        if not (lib_d <= 1e-2):
+            raise SystemExit(f"conv2d does not compute poly_expand at {h}x{w}: max|d| {lib_d}")
+        ms = cuda_ms(lambda: poly_expand(img, *rest, **kw), 5)
+        plain_ms = cuda_ms(lambda: poly_expand_reference(img, *rest, **kw), 2)
+        lib_ms = cuda_ms(lambda: F.conv2d(padded, weight), 5)
+        t_bytes, t_ops = poly_bound_ms(nb, h, w)
+        for key, val in zip(("ms", "plain_ms", "lib_ms", "t_bytes", "t_ops"),
+                            (ms, plain_ms, lib_ms, t_bytes, t_ops)):
+            tot["poly"][key] += val
+        log(f"[kernel] poly_expand {h}x{w} N={nb}: kernel {ms:.6g} ms, plain "
+            f"{plain_ms:.6g} ms, conv2d {lib_ms:.6g} ms (max|d| vs kernel "
+            f"{lib_d:.3g}), bound {max(t_bytes, t_ops):.6g} ms (bytes "
+            f"{t_bytes:.6g}, operations {t_ops:.6g}); {card}")
+    for args, kw in level_calls:
+        b, _, h, w = args[0].shape
+        k, max_d = _compare_level(f"main path {h}x{w} B={b} max_disp "
+                                  f"{kw['max_disp']:g}", args, kw)
+        worst["level"] = max(worst["level"], max_d)
+        ms = cuda_ms(lambda: farneback_level(*args, **kw), 5)
+        plain_ms = cuda_ms(lambda: farneback_level_reference(*args, **kw), 2)
+        t_bytes, t_ops = level_bound_ms(k[2], h, w)
+        for key, val in zip(("ms", "plain_ms", "t_bytes", "t_ops"),
+                            (ms, plain_ms, t_bytes, t_ops)):
+            tot["level"][key] += val
+        log(f"[kernel] farneback_level {h}x{w} B={b}: kernel {ms:.6g} ms, plain "
+            f"{plain_ms:.6g} ms, bound {max(t_bytes, t_ops):.6g} ms (bytes "
+            f"{t_bytes:.6g}, operations {t_ops:.6g}); {card}")
+    log(f"[kernel] farn one slab, {len(poly_calls)} poly_expand + "
+        f"{len(level_calls)} farneback_level calls: poly_expand kernel "
+        f"{tot['poly']['ms']:.6g} ms, plain {tot['poly']['plain_ms']:.6g} ms, "
+        f"conv2d {tot['poly']['lib_ms']:.6g} ms; farneback_level kernel "
+        f"{tot['level']['ms']:.6g} ms, plain {tot['level']['plain_ms']:.6g} ms; {card}")
+
+    rng = np.random.default_rng(4)
+    extra = [
+        # (name, B, h, w, max_disp, initial u)
+        ("odd 37x53 B=3", 3, 37, 53, 4.0, 0.0),
+        ("coarsest level 8x11 B=4", 4, 8, 11, 4.0, 0.0),
+        ("clamp 64x80 B=4 (u0 beyond max_disp)", 4, 64, 80, 3.0, 7.5),
+    ]
+    for name, b, h, w, md, u0 in extra:
+        I0n, I1n = textured_pairs(b, h, w, rng.uniform(-2.0, 2.0, (b, 2)),
+                                  seed=b * 1000 + h)
+        imgs = torch.from_numpy(np.concatenate([I0n, I1n])).to(dev)
+        R, max_d = _compare_poly(name, imgs, n, sigma)
+        worst["poly"] = max(worst["poly"], max_d)
+        for i in range(2 * b):
+            if not torch.equal(poly_expand(imgs[i:i + 1], n, sigma), R[i:i + 1]):
+                raise SystemExit(f"poly_expand image {i} of {name} depends on its batch")
+        u = torch.full((b, h, w), u0, dtype=torch.float32, device=dev)
+        args = (R[:b], R[b:], u, -u)
+        kw = dict(level_calls[-1][1], max_disp=md)
+        k, max_d = _compare_level(name, args, kw)
+        worst["level"] = max(worst["level"], max_d)
+        for i in range(b):
+            one = farneback_level(*(a[i:i + 1].contiguous() for a in args), **kw)
+            if not all(torch.equal(x[i:i + 1], y) for x, y in zip(k, one)):
+                raise SystemExit(f"farneback_level pair {i} of {name} depends on its batch")
+        log(f"[kernel] {name}: each image and each pair alone equals its batched result")
+
+    # the level-image products stay in full float32 whatever the caller set
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        flow_tf32 = fb.farneback_flow(I0, I1, p)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    if not torch.equal(flow, flow_tf32):
+        raise SystemExit("the farn slab changed when the caller switched TF32 on")
+    alone = [torch.equal(fb.farneback_flow(I0[i:i + 1], I1[i:i + 1], p), flow[i:i + 1])
+             for i in (0, PAIR_BATCH // 2, PAIR_BATCH - 1)]
+    log(f"[kernel] farn slab: same bytes with TF32 switched on by the caller; "
+        f"pairs 0, {PAIR_BATCH // 2}, {PAIR_BATCH - 1} of the whole flow solved "
+        f"alone equal their batched bytes: {alone}")
+
+    def record(key, name, source, replaces, library_ms):
+        t = tot[key]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": worst[key],
+            # one farn slab: the levels' calls, timed one by one
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["t_bytes"], t["t_ops"]),
+            "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
+            "library_ms": library_ms,
+        }
+
+    return [
+        record("poly", "poly_expand", "denseflow_tpu_torch/csrc/farneback_polyexp.cu",
+               "denseflow_tpu/kernels/farneback_fused.py:341", tot["poly"]["lib_ms"]),
+        record("level", "farneback_level", "denseflow_tpu_torch/csrc/farneback_level.cu",
+               "denseflow_tpu/kernels/farneback_fused.py:179", None),
+    ]
+
+
+def translated_pair(h=96, w=128, dx=2.3, dy=-1.6, seed=1):
+    """tests/test_solvers.py::_translated_pair: smooth noise and its copy
+    moved by (dx, dy), both uint8."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    base = ndi.gaussian_filter(rng.uniform(0, 255, (h + 20, w + 20)), 2.0).astype(np.float32)
+    ys, xs = np.mgrid[0:h, 0:w]
+    I0 = np.clip(base[10:10 + h, 10:10 + w], 0, 255).astype(np.uint8)
+    I1 = np.clip(ndi.map_coordinates(base, [ys + 10 - dy, xs + 10 - dx], order=3),
+                 0, 255).astype(np.uint8)
+    return I0, I1
+
+
+def phase_farn_fidelity() -> None:
+    """Port Farneback at full width on the card: the analytic goldens and
+    OpenCV's own Farneback."""
+    import cv2
+    import torch
+
+    from denseflow_tpu_torch.algorithms.farneback import FarnebackParams, make_farneback_solver
+
+    for name in ("translation", "rotation", "diag"):
+        d = np.load(ROOT / "tests" / "golden" / f"tvl1_{name}.npz")
+        solver = make_farneback_solver(*d["I0"].shape, FarnebackParams(), DEVICE)
+        flow = solver(torch.from_numpy(d["I0"][None]), torch.from_numpy(d["I1"][None]))
+        e = float(np.linalg.norm(flow[0].cpu().numpy() - d["gt"], axis=-1).mean())
+        log(f"[fidelity] farn tvl1_{name} {d['I0'].shape[0]}x{d['I0'].shape[1]}: "
+            f"EPE vs analytic {e:.4f} px (gate {GATE})")
+        if not (e <= GATE):
+            raise SystemExit(f"farn tvl1_{name} over the {GATE} px EPE gate")
+    I0, I1 = translated_pair()
+    ref = cv2.calcOpticalFlowFarneback(I0, I1, None, 0.5, 5, 13, 10, 5, 1.1, 0)
+    solver = make_farneback_solver(96, 128, FarnebackParams(), DEVICE)
+    ours = solver(torch.from_numpy(I0[None]), torch.from_numpy(I1[None]))[0].cpu().numpy()
+    epe = np.linalg.norm(ours - ref, axis=-1)
+    inner, whole = float(epe[10:-10, 10:-10].mean()), float(epe.mean())
+    log(f"[fidelity] farn vs cv2.calcOpticalFlowFarneback 96x128: interior EPE "
+        f"{inner:.4g} px, whole {whole:.4g} px (gates {CV2_GATE[0]}, {CV2_GATE[1]})")
+    if not (inner < CV2_GATE[0] and whole < CV2_GATE[1]):
+        raise SystemExit("farn over the cv2 gate")
+
+
 def main() -> int:
     if not (ROOT / "denseflow_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the denseflow_tpu_torch package is not beside this "
@@ -391,6 +688,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from denseflow_tpu_torch.kernels import _build
+    from denseflow_tpu_torch.kernels.farneback_fused import farneback_level, poly_expand
+    from denseflow_tpu_torch.kernels.tvl1_fused import tvl1_scale
 
     card = nvidia_smi_line()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -399,8 +698,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build(["tvl1_scale"])
-    log(f"[build] tvl1_scale.cu built in {time.perf_counter() - t0:.3g} s")
+    _build.build(["tvl1_scale", "farneback_polyexp", "farneback_level"])
+    log(f"[build] tvl1_scale.cu, farneback_polyexp.cu, farneback_level.cu built "
+        f"in {time.perf_counter() - t0:.3g} s")
     for name, text in _build.BUILD_LOGS.items():
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
@@ -417,8 +717,14 @@ def main() -> int:
             f"{time.perf_counter() - t0:.3g} s")
         records = phase_kernels(video, card)
         phase_fidelity()
-        launches = phase_main_path(video, work, card)
+        launches = phase_main_path(video, work, card, "tvl1",
+                                   {"tvl1_scale": tvl1_scale})
         phase_escalation(work)
+        records += phase_farn_kernels(video, card)
+        phase_farn_fidelity()
+        launches.update(phase_main_path(
+            video, work, card, "farn",
+            {"poly_expand": poly_expand, "farneback_level": farneback_level}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for r in records:

@@ -4,12 +4,13 @@ Maps the reference's algorithm names (reference tools/denseflow.cpp:11,
 src/denseflow_gpu.cpp:285-304) to batched solvers:
 
 * ``tvl1`` — Zach/Pock/Bischof TV-L1 primal-dual (default)
+* ``farn`` — Farneback polynomial expansion
 * ``nv``   — hardware-ASIC flow in the reference; here a fast approximate
   TVL1 preset (fewer scales/iterations), the same kernel with other
   parameters.
 
-``farn`` and ``brox`` are not ported yet (ROADMAP.md A8, A9) and raise.
-The presets are those of the JAX package's `denseflow_tpu/algorithms`.
+``brox`` is not ported yet (ROADMAP.md A9) and raises. The presets are
+those of the JAX package's `denseflow_tpu/algorithms`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+from denseflow_tpu_torch.algorithms.farneback import (
+    FarnebackParams,
+    make_farneback_solver,
+)
 from denseflow_tpu_torch.algorithms.tvl1 import TVL1Params, make_tvl1_solver
 from denseflow_tpu_torch.config import ALGORITHMS, UNPORTED, _unported_msg
 
@@ -34,10 +39,15 @@ _PRESETS = {
         "fast": TVL1Params(warps=1, iterations=30, nscales=3),
         "quality": TVL1Params(warps=3, iterations=120, nscales=4),
     },
+    "farn": {
+        "default": FarnebackParams(),
+        "fast": FarnebackParams(num_iters=5, num_levels=4),
+        "quality": FarnebackParams(num_iters=15),
+    },
 }
 
 
-def solver_params(algorithm: str, preset: str | None = None) -> TVL1Params:
+def solver_params(algorithm: str, preset: str | None = None):
     """Resolve (algorithm, preset) -> the solver's parameter dataclass."""
     if algorithm in UNPORTED and algorithm in ALGORITHMS:
         raise NotImplementedError(_unported_msg(algorithm))
@@ -61,8 +71,11 @@ def make_solver(
     device: str = "cuda",
 ) -> Callable:
     """Batched solver f(I0_u8, I1_u8) -> (B, H, W, 2) float32 on `device`.
-    max_disp > 0 overrides the finest-level displacement clamp (40 px)."""
+    Both algorithms work in 0..255. max_disp > 0 overrides the
+    finest-level displacement clamp (40 px)."""
     params = solver_params(algorithm, preset)
     if max_disp > 0:
         params = dataclasses.replace(params, max_disp=int(max_disp))
+    if algorithm == "farn":
+        return make_farneback_solver(height, width, params, device)
     return make_tvl1_solver(height, width, params, device)

@@ -19,7 +19,6 @@ SAVE_TYPES = ("jpg", "png", "h5")
 
 # feature -> (its flag, the ROADMAP.md item that ports it)
 UNPORTED = {
-    "farn": ("-a=farn", "A8 (Farneback, kernels B3/B4)"),
     "brox": ("-a=brox", "A9 (Brox, kernels B5/B6)"),
     "png": ("-st=png", "A6 (png and h5 save types)"),
     "h5": ("-st=h5", "A6 (png and h5 save types)"),
@@ -84,7 +83,7 @@ class FlowConfig:
     num_hosts: int = 1
     distributed: bool = False
     coordinator: str = ""
-    # Finest-level displacement clamp (px) of the TVL1 warp; 0 = the
+    # Finest-level displacement clamp (px) of the solver's warp; 0 = the
     # solver default (40).
     max_disp: int = 0
     h5_dtype: str = "f32"

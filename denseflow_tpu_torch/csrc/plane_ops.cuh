@@ -1,0 +1,140 @@
+// Plane operations shared by the package's flow kernels, for Hopper (sm_90a).
+//
+// The counterparts of the JAX package's in-kernel helpers
+// (denseflow_tpu/kernels/common.py::make_plane_ops) that Farneback uses: the
+// linear `resample` and `box_sum`, plus the border ramp. Each computes, in
+// the same order of float operations, what the plain PyTorch helpers in
+// denseflow_tpu_torch/kernels/plane_ops.py compute, so a kernel built with
+// --fmad=false agrees with its plain version bit for bit.
+//
+// The Pallas helpers work on whole (hp, wp) planes padded to (8, 128) tiles
+// with circular rolls; here a thread computes one pixel, and an index that a
+// roll would wrap into the padded band is clamped or zeroed directly. The
+// row/column index planes and the `real` mask are the thread's own (r, c)
+// and the tests r < h, c < w.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace plane_ops {
+
+// OpenCV's border attenuation ramp (denseflow_tpu/algorithms/farneback.py)
+__device__ __constant__ float kBorder[5] = {0.14f, 0.14f, 0.4472f, 0.4472f,
+                                            0.4472f};
+
+// Triangle kernel, support (-1, 1): bilinear interpolation weight.
+__device__ __forceinline__ float linear_weight(float x) {
+  return fmaxf(0.0f, 1.0f - fabsf(x));
+}
+
+// The two taps of a linear 1-D resample at integer coordinate `coord` of an
+// axis of extent n, with displacement `disp` clamped to +-max_disp and the
+// position clamped into [0, n-1]. Of the Pallas roll sweep only the taps at
+// floor(d) and floor(d)+1 have weight; the caller adds them in this order
+// (i0 then i1) to a zero accumulator, as the sweep does.
+struct LinearTaps {
+  int i0, i1;
+  float w0, w1;
+};
+
+__device__ __forceinline__ LinearTaps linear_taps(int coord, float disp,
+                                                  int n, float max_disp) {
+  const float cf = (float)coord;
+  const float top = (float)(n - 1);
+  const float dc = fminf(fmaxf(disp, -max_disp), max_disp);
+  const float pos = fminf(fmaxf(cf + dc, 0.0f), top);
+  const float d = pos - cf;
+  const float k0 = floorf(d);
+  const float k1 = k0 + 1.0f;
+  LinearTaps t;
+  t.w0 = linear_weight(d - k0);
+  t.w1 = linear_weight(d - k1);
+  t.i0 = (int)fminf(fmaxf(cf + k0, 0.0f), top);
+  t.i1 = (int)fminf(fmaxf(cf + k1, 0.0f), top);
+  return t;
+}
+
+// Pairwise (cascaded doubling) sum of the zero-padded line values
+// z(start) .. z(start + size - 1), size a power of two, where z(k) = get(k)
+// for 0 <= k < n and 0 elsewhere. The stack combines equal-sized partial sums
+// left + right as they complete, which is the association of the Pallas
+// cascade: sums[2m][k] = sums[m][k] + sums[m][k + m].
+template <class Get>
+__device__ __forceinline__ float tree_sum(const Get& get, int start, int size,
+                                          int n) {
+  float val[16];
+  int len[16];
+  int top = 0;
+  for (int i = 0; i < size; ++i) {
+    const int k = start + i;
+    float v = (k >= 0 && k < n) ? get(k) : 0.0f;
+    int s = 1;
+    while (top > 0 && len[top - 1] == s) {
+      v = val[top - 1] + v;
+      s *= 2;
+      --top;
+    }
+    val[top] = v;
+    len[top] = s;
+    ++top;
+  }
+  return val[0];
+}
+
+// Sum of get(clamp(y + k, 0, n-1)) for k in [-(win/2), win/2], win odd (the
+// wrappers refuse even windows), in the float order of the Pallas box_sum
+// with zero_pad=True. For win >= 4: the zero-padded window summed in
+// power-of-two blocks, largest first, then the clamped taps added back as
+// count * edge value. For win < 4: the taps in ascending order.
+template <class Get>
+__device__ __forceinline__ float box_sum(const Get& get, int y, int n,
+                                         int win) {
+  const int ctr = win / 2;
+  if (win < 4) {
+    float acc = 0.0f;
+    for (int k = -ctr; k <= ctr; ++k) {
+      acc = acc + get(min(max(y + k, 0), n - 1));
+    }
+    return acc;
+  }
+  int m = 1;
+  while (m * 2 <= win) m *= 2;
+  float total = 0.0f;
+  bool first = true;
+  int off = 0, rem = win;
+  while (rem) {
+    if (rem >= m) {
+      const float part = tree_sum(get, y - ctr + off, m, n);
+      total = first ? part : total + part;
+      first = false;
+      off += m;
+      rem -= m;
+    }
+    m >>= 1;
+  }
+  const float cnt_lo = (float)max(0, ctr - y);
+  const float cnt_hi = (float)max(0, y + ctr - (n - 1));
+  return (total + cnt_lo * get(0)) + cnt_hi * get(n - 1);
+}
+
+// OpenCV's separable border attenuation at (r, c) of an (h, w) level,
+// multiplied factor by factor in the Pallas order: rows j = 0.. (the top
+// band, then the bottom), then the columns. Bands multiply where they
+// overlap on tiny levels.
+__device__ __forceinline__ float border_scale(int r, int c, int h, int w) {
+  float s = 1.0f;
+  const int kh = min(5, h), kw = min(5, w);
+  for (int j = 0; j < kh; ++j) {
+    if (r == j) s = s * kBorder[j];
+    if (r == h - 1 - j) s = s * kBorder[j];
+  }
+  for (int j = 0; j < kw; ++j) {
+    if (c == j) s = s * kBorder[j];
+    if (c == w - 1 - j) s = s * kBorder[j];
+  }
+  return s;
+}
+
+}  // namespace plane_ops

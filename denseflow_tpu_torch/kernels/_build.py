@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled with `nvcc`
 for sm_90a into a shared library under `build/denseflow_tpu_torch/` beside
-the package (the file name carries a hash of the source and the flags, so
-an edit rebuilds), then loaded with ctypes. Nothing is compiled when the
+the package (the file name carries a hash of the source, the shared
+`csrc/*.cuh` headers and the flags, so an edit rebuilds), then loaded with
+ctypes. Nothing is compiled when the
 package is imported: the first call that launches a kernel builds it.
 """
 
@@ -43,7 +44,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    # the source, the shared headers it may include, and the flags
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -62,6 +62,9 @@ CONFIG_CASES = [
     dict(),
     dict(algorithm="nv", step=1),
     dict(algorithm="tvl1", step=1),
+    dict(algorithm="farn", step=1),
+    dict(algorithm="farn", step=-2, preset="fast"),
+    dict(algorithm="farn", preset="warpspeed"),
     dict(algorithm="dis"),
     dict(bound=0),
     dict(bound=-3),
@@ -109,7 +112,7 @@ def test_config_defaults_match():
 
 
 @pytest.mark.parametrize("kw,flag,item", [
-    (dict(algorithm="farn", step=1), "-a=farn", "A8"),
+    (dict(algorithm="brox", save_type="png", step=1), "-a=brox", "A9"),
     (dict(algorithm="brox", step=-1), "-a=brox", "A9"),
     (dict(save_type="png", step=1), "-st=png", "A6"),
     (dict(save_type="h5", step=2), "-st=h5", "A6"),

@@ -29,6 +29,8 @@ def test_every_module_imports_without_jax():
     """A fresh interpreter (tests/conftest.py imports jax, so not this one)."""
     mods = _modules()
     assert "denseflow_tpu_torch.kernels.tvl1_fused" in mods
+    assert "denseflow_tpu_torch.kernels.farneback_fused" in mods
+    assert "denseflow_tpu_torch.algorithms.farneback" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -83,8 +85,9 @@ def test_entry_points_refuse_missing_card(tmp_path):
     from denseflow_tpu_torch.config import FlowConfig
     from denseflow_tpu_torch.executor import DeviceExecutor
 
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make_solver("tvl1", 32, 40)
+    for alg in ("tvl1", "farn"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_solver(alg, 32, 40)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceExecutor("tvl1", 32, 40, 1, 20, 4)
     video = tmp_path / "v.avi"
@@ -95,6 +98,7 @@ def test_entry_points_refuse_missing_card(tmp_path):
         run(FlowConfig(input=str(video), output_dir=str(tmp_path), step=1))
     # the CLI reports it and fails; nothing was written
     assert main([str(video), f"-o={tmp_path / 'o'}", "-s=1"]) == 1
+    assert main([str(video), f"-o={tmp_path / 'o'}", "-s=1", "-a=farn"]) == 1
     assert not (tmp_path / "o").exists()
 
 

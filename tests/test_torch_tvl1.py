@@ -84,9 +84,8 @@ def test_params_defaults_match_jax():
 
 
 def test_unported_algorithms_raise():
-    for alg in ("farn", "brox"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
-            solver_params(alg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+        solver_params("brox")
     with pytest.raises(ValueError, match="not supported"):
         solver_params("dis")
 
