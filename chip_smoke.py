@@ -31,7 +31,21 @@ Phases (each prints its lines; any failure exits non-zero):
    goldens (tests/test_fidelity.py:52-64) and the cv2 gate
    (tests/test_solvers.py:91-98);
 9. the farn path end to end, as phase 5:
-   `-a=farn -s=1 -b=20 -st=jpg -ns=256 --strict`.
+   `-a=farn -s=1 -b=20 -st=jpg -ns=256 --strict`;
+10. Brox's level kernel against its plain version, as in phase 3: every
+    level call of one brox slab of the same 16 pairs (13 levels, 256x341 down
+    to 18x23, the reference's full budget of 77 x 10 x 10 with stop_eps
+    1e-3), each call's counts (warps, inner steps, Jacobi sweeps) beside its
+    time and bound; then an odd shape, the coarsest level, a flow past the
+    clamp and a stop_eps=0 case at a reduced budget, each pair alone against
+    its batch;
+11. Brox fidelity at the full budget: mean EPE <= 0.5 px on the four
+    analytic goldens (tests/test_fidelity.py:67-77) and a central EPE under
+    0.2 px on the 64x80 translation (tests/test_solvers.py:108-117);
+12. the brox path end to end, as phase 5:
+    `-a=brox -s=1 -b=20 -st=jpg -ns=256 --strict`.
+
+Each phase prints its wall time.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (each kernel's launches counted on its own path's run) and
@@ -70,6 +84,18 @@ F32_FLOPS = 67e12
 # 4-tap bicubic passes of ~110 each plus ~14 for the warp constants).
 OPS_PER_PX_ITER = 53
 OPS_PER_PX_WARP = 235
+
+# f32 operations per pixel of the Brox level, counted from
+# csrc/brox_scale.cu: one Jacobi sweep (the two weighted Laplacians 13 each,
+# the two updates 5 each); one inner step besides its sweeps (psi_s: four
+# _D5 gradients of u + du 44, the sum and 1/sqrt 10; psi_d, the weights and
+# the 2x2 system 75; the inner stop sum 6); one warp (two 4-tap bicubic
+# passes of ~111 each, the derivative planes 23, u += du and the stop 6);
+# the level's four _D5 image gradients, once a call.
+OPS_PER_PX_SWEEP = 36
+OPS_PER_PX_INNER = 135
+OPS_PER_PX_WARP = 252
+OPS_PER_PX_LEVEL = 28
 
 # f32 operations per pixel of Farneback's kernels, counted from
 # csrc/farneback_polyexp.cu (poly_n = 5, 11 taps: the vertical pass 3 x 21,
@@ -633,6 +659,172 @@ def phase_farn_kernels(video: Path, card: str) -> list:
     ]
 
 
+# ---------------- Brox ----------------
+
+def brox_bound_ms(counts, h: int, w: int):
+    """(bytes time, operations time) in ms of one brox_scale call: I0, I1,
+    u, v read once and u, v written once (6 planes a pair), and the
+    operations of the warps, inner steps and sweeps these pairs ran
+    (`counts`)."""
+    px = h * w
+    nbytes = 6 * counts.shape[0] * px * 4
+    c = counts.double().sum(0)
+    ops = (float(c[0]) * OPS_PER_PX_WARP + float(c[1]) * OPS_PER_PX_INNER
+           + float(c[2]) * OPS_PER_PX_SWEEP + counts.shape[0] * OPS_PER_PX_LEVEL) * px
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def cuda_ms_once(fn):
+    """(fn(), its time on the card in ms) for one run (CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _compare_brox(name, args, kw):
+    """brox_scale vs brox_scale_reference on the same card tensors; returns
+    (kernel out, max |du|, plain ms) and fails over KERNEL_TOL."""
+    import torch
+
+    from denseflow_tpu_torch.kernels.brox_fused import brox_scale, brox_scale_reference
+
+    k = brox_scale(*args, **kw)
+    r, plain_ms = cuda_ms_once(lambda: brox_scale_reference(*args, **kw))
+    du = torch.cat([(k[0] - r[0]).abs().flatten(), (k[1] - r[1]).abs().flatten()])
+    mean_d, max_d = float(du.mean()), float(du.max())
+    kc, rc = k[2].cpu(), r[2].cpu()
+    log(f"[kernel] brox_scale {name}: mean|du| {mean_d:.3g} px, max|du| {max_d:.3g} px "
+        f"(limit mean {KERNEL_TOL}); bit-equal {torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])}; "
+        f"counts equal {torch.equal(kc, rc)}; warps {kc[:, 0].tolist()}, inner steps "
+        f"{kc[:, 1].tolist()}, sweeps {kc[:, 2].tolist()} (plain warps {rc[:, 0].tolist()}, "
+        f"inner {rc[:, 1].tolist()})")
+    if not (mean_d <= KERNEL_TOL):
+        raise SystemExit(f"brox_scale disagrees with its plain version on {name}")
+    return k, max_d, plain_ms
+
+
+def phase_brox_kernels(video: Path, card: str) -> list:
+    """brox_scale (CUDA) vs brox_scale_reference (PyTorch) on the card, at
+    every level call of one brox slab and in the extra cases."""
+    import torch
+
+    import denseflow_tpu_torch.algorithms.brox as bx
+    from denseflow_tpu_torch.kernels.brox_fused import brox_scale
+
+    dev = torch.device(DEVICE)
+    p = bx.BroxParams()
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return brox_scale(*args, **kw)
+
+    scale = float(np.float32(1.0 / 255.0))
+    I0u, I1u = main_path_slab(video)
+    bx.brox_scale = capture
+    try:
+        bx.brox_flow(torch.from_numpy(I0u).to(dev, torch.float32) * scale,
+                     torch.from_numpy(I1u).to(dev, torch.float32) * scale, p)
+    finally:
+        bx.brox_scale = brox_scale
+    tot = dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    worst = 0.0
+    for args, kw in calls:
+        b, h, w = args[0].shape
+        k, max_d, plain_ms = _compare_brox(
+            f"main path {h}x{w} B={b} max_disp {kw['max_disp']:g}", args, kw)
+        worst = max(worst, max_d)
+        ms = cuda_ms(lambda: brox_scale(*args, **kw), 3)
+        t_bytes, t_ops = brox_bound_ms(k[2], h, w)
+        c = k[2].double().sum(0).tolist()
+        for key, val in zip(("ms", "plain_ms", "t_bytes", "t_ops"),
+                            (ms, plain_ms, t_bytes, t_ops)):
+            tot[key] += val
+        log(f"[kernel] brox_scale {h}x{w} B={b}: slab totals warps {c[0]:g}, inner steps "
+            f"{c[1]:g}, sweeps {c[2]:g}; kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
+            f"bound {max(t_bytes, t_ops):.6g} ms (bytes {t_bytes:.6g}, operations "
+            f"{t_ops:.6g}); {card}")
+    log(f"[kernel] brox_scale one slab, {len(calls)} levels: kernel {tot['ms']:.6g} ms, "
+        f"plain {tot['plain_ms']:.6g} ms, bound {max(tot['t_bytes'], tot['t_ops']):.6g} ms; "
+        f"{card}")
+
+    rng = np.random.default_rng(6)
+    reduced = dict(inner_iterations=3, outer_iterations=4, solver_iterations=4)
+    extra = [
+        # (name, B, h, w, budget and clamp, initial u)
+        ("odd 37x53 B=3", 3, 37, 53, dict(max_disp=4.0), 0.0),
+        ("coarsest level 18x23 B=4", 4, 18, 23, dict(max_disp=4.0), 0.0),
+        ("clamp 64x80 B=4 (u0 beyond max_disp)", 4, 64, 80, dict(max_disp=3.0), 7.5),
+        ("stop_eps=0 40x56 B=2, reduced budget", 2, 40, 56,
+         dict(reduced, max_disp=8.0, stop_eps=0.0), 0.0),
+    ]
+    for name, b, h, w, over, u0 in extra:
+        I0n, I1n = textured_pairs(b, h, w, rng.uniform(-2.0, 2.0, (b, 2)),
+                                  seed=b * 1000 + h)
+        I0 = torch.from_numpy(I0n).to(dev) * scale
+        I1 = torch.from_numpy(I1n).to(dev) * scale
+        u = torch.full((b, h, w), u0, dtype=torch.float32, device=dev)
+        args = (I0, I1, u, -u)
+        kw = dict(calls[0][1], **over)
+        k, max_d, _ = _compare_brox(name, args, kw)
+        worst = max(worst, max_d)
+        if kw["stop_eps"] == 0:
+            want = [kw["outer_iterations"], kw["outer_iterations"] * kw["inner_iterations"],
+                    kw["outer_iterations"] * kw["inner_iterations"] * kw["solver_iterations"]]
+            if k[2].tolist() != [want] * b:
+                raise SystemExit(f"brox_scale {name}: counts {k[2].tolist()}, want {want}")
+        # each pair alone gives the bytes it gave in the batch
+        for i in range(b):
+            one = brox_scale(*(a[i:i + 1].contiguous() for a in args), **kw)
+            if not all(torch.equal(x[i:i + 1], y) for x, y in zip(k, one)):
+                raise SystemExit(f"brox_scale pair {i} of {name} depends on its batch")
+        log(f"[kernel] brox_scale {name}: each pair alone equals its batched result")
+    return [{
+        "name": "brox_scale", "route": "cuda",
+        "source": "denseflow_tpu_torch/csrc/brox_scale.cu",
+        "replaces": "denseflow_tpu/kernels/brox_fused.py:240",
+        "launches": None, "max_abs_err": worst,
+        # one brox slab: the levels' launches, timed one by one
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": max(tot["t_bytes"], tot["t_ops"]),
+        "bound_by": "operations" if tot["t_ops"] >= tot["t_bytes"] else "bytes",
+        "library_ms": None,
+    }]
+
+
+def phase_brox_fidelity() -> None:
+    """Port Brox at the full budget on the card: the analytic goldens and
+    the 64x80 translation."""
+    import torch
+
+    from denseflow_tpu_torch.algorithms.brox import BroxParams, make_brox_solver
+
+    for name in ("translation", "rotation", "zoom", "diag"):
+        d = np.load(ROOT / "tests" / "golden" / f"tvl1_{name}.npz")
+        solver = make_brox_solver(*d["I0"].shape, BroxParams(), DEVICE)
+        flow = solver(torch.from_numpy(d["I0"][None]), torch.from_numpy(d["I1"][None]))
+        e = float(np.linalg.norm(flow[0].cpu().numpy() - d["gt"], axis=-1).mean())
+        log(f"[fidelity] brox tvl1_{name} {d['I0'].shape[0]}x{d['I0'].shape[1]}: "
+            f"EPE vs analytic {e:.4f} px (gate {GATE})")
+        if not (e <= GATE):
+            raise SystemExit(f"brox tvl1_{name} over the {GATE} px EPE gate")
+    dx, dy = 1.7, -0.8
+    I0, I1 = translated_pair(64, 80, dx, dy)
+    solver = make_brox_solver(64, 80, BroxParams(), DEVICE)
+    flow = solver(torch.from_numpy(I0[None]), torch.from_numpy(I1[None]))[0].cpu().numpy()
+    e = float(np.linalg.norm(flow[10:-10, 10:-10] - np.array([dx, dy]), axis=-1).mean())
+    log(f"[fidelity] brox 64x80 translation ({dx}, {dy}): central EPE {e:.4f} px (gate 0.2)")
+    if not (e < 0.2):
+        raise SystemExit("brox translation over the 0.2 px gate")
+
+
 def translated_pair(h=96, w=128, dx=2.3, dy=-1.6, seed=1):
     """tests/test_solvers.py::_translated_pair: smooth noise and its copy
     moved by (dx, dy), both uint8."""
@@ -676,6 +868,14 @@ def phase_farn_fidelity() -> None:
         raise SystemExit("farn over the cv2 gate")
 
 
+def timed(n: int, fn, *args):
+    """fn(*args), then phase n's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase {n}] {fn.__name__} took {time.perf_counter() - t0:.4g} s")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "denseflow_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the denseflow_tpu_torch package is not beside this "
@@ -688,6 +888,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from denseflow_tpu_torch.kernels import _build
+    from denseflow_tpu_torch.kernels.brox_fused import brox_scale
     from denseflow_tpu_torch.kernels.farneback_fused import farneback_level, poly_expand
     from denseflow_tpu_torch.kernels.tvl1_fused import tvl1_scale
 
@@ -698,9 +899,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build(["tvl1_scale", "farneback_polyexp", "farneback_level"])
-    log(f"[build] tvl1_scale.cu, farneback_polyexp.cu, farneback_level.cu built "
-        f"in {time.perf_counter() - t0:.3g} s")
+    _build.build(["tvl1_scale", "farneback_polyexp", "farneback_level", "brox_scale"])
+    log(f"[build] tvl1_scale.cu, farneback_polyexp.cu, farneback_level.cu, "
+        f"brox_scale.cu built in {time.perf_counter() - t0:.3g} s")
     for name, text in _build.BUILD_LOGS.items():
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
@@ -715,16 +916,20 @@ def main() -> int:
         make_bench_video(video, N_FRAMES)
         log(f"[video] made {N_FRAMES}-frame 360x480 MJPG in "
             f"{time.perf_counter() - t0:.3g} s")
-        records = phase_kernels(video, card)
-        phase_fidelity()
-        launches = phase_main_path(video, work, card, "tvl1",
-                                   {"tvl1_scale": tvl1_scale})
-        phase_escalation(work)
-        records += phase_farn_kernels(video, card)
-        phase_farn_fidelity()
-        launches.update(phase_main_path(
-            video, work, card, "farn",
+        records = timed(3, phase_kernels, video, card)
+        timed(4, phase_fidelity)
+        launches = timed(5, phase_main_path, video, work, card, "tvl1",
+                         {"tvl1_scale": tvl1_scale})
+        timed(6, phase_escalation, work)
+        records += timed(7, phase_farn_kernels, video, card)
+        timed(8, phase_farn_fidelity)
+        launches.update(timed(
+            9, phase_main_path, video, work, card, "farn",
             {"poly_expand": poly_expand, "farneback_level": farneback_level}))
+        records += timed(10, phase_brox_kernels, video, card)
+        timed(11, phase_brox_fidelity)
+        launches.update(timed(12, phase_main_path, video, work, card, "brox",
+                              {"brox_scale": brox_scale}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for r in records:

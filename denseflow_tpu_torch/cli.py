@@ -37,7 +37,7 @@ Usage: denseflow [params] input
     -h, --help
         print help message
     -a, --algorithm (value:tvl1)
-        optical flow algorithm (nv/tvl1/farn; brox not ported yet)
+        optical flow algorithm (nv/tvl1/farn/brox)
     -b, --bound (value:32)
         maximum of optical flow
     -cf, --classFolder

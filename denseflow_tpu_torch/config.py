@@ -19,7 +19,6 @@ SAVE_TYPES = ("jpg", "png", "h5")
 
 # feature -> (its flag, the ROADMAP.md item that ports it)
 UNPORTED = {
-    "brox": ("-a=brox", "A9 (Brox, kernels B5/B6)"),
     "png": ("-st=png", "A6 (png and h5 save types)"),
     "h5": ("-st=h5", "A6 (png and h5 save types)"),
     "devices": ("--devices>1", "A10 (multi-GPU and multi-host)"),

@@ -1,8 +1,9 @@
 // Plane operations shared by the package's flow kernels, for Hopper (sm_90a).
 //
 // The counterparts of the JAX package's in-kernel helpers
-// (denseflow_tpu/kernels/common.py::make_plane_ops) that Farneback uses: the
-// linear `resample` and `box_sum`, plus the border ramp. Each computes, in
+// (denseflow_tpu/kernels/common.py::make_plane_ops): `shift`, `conv_taps`,
+// `box_sum` and `resample`, linear (Farneback) or cubic (TVL1, Brox), plus
+// Farneback's border ramp. Each computes, in
 // the same order of float operations, what the plain PyTorch helpers in
 // denseflow_tpu_torch/kernels/plane_ops.py compute, so a kernel built with
 // --fmad=false agrees with its plain version bit for bit.
@@ -53,6 +54,78 @@ __device__ __forceinline__ LinearTaps linear_taps(int coord, float disp,
   t.w1 = linear_weight(d - k1);
   t.i0 = (int)fminf(fmaxf(cf + k0, 0.0f), top);
   t.i1 = (int)fminf(fmaxf(cf + k1, 0.0f), top);
+  return t;
+}
+
+// shift(p, k)[y] reads p at clamp(y + k, 0, n-1): replicate borders at the
+// real extent n.
+__device__ __forceinline__ int shift_index(int y, int k, int n) {
+  return min(max(y + k, 0), n - 1);
+}
+
+// A short stencil's float32 taps, passed by value so that the compiler sees
+// them as constants.
+template <int N>
+struct Taps {
+  float c[N];
+};
+
+// sum_i taps.c[i] * get(shift_index(y, i - center, n)) over the N taps, in
+// the float order of the Pallas conv_taps: zero taps are skipped, the first
+// nonzero term starts the sum and the others are added in ascending order.
+template <int N, class Get>
+__device__ __forceinline__ float conv_taps(const Get& get, const Taps<N> taps,
+                                           int center, int y, int n) {
+  float out = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float c = taps.c[i];
+    if (c == 0.0f) continue;
+    const float term = c * get(shift_index(y, i - center, n));
+    out = first ? term : out + term;
+    first = false;
+  }
+  return out;
+}
+
+// Cubic-convolution kernel, a = -0.75 (OpenCV INTER_CUBIC), support (-2, 2).
+__device__ __forceinline__ float cubic_weight(float x) {
+  const float a = -0.75f;
+  const float ax = fabsf(x);
+  const float ax2 = ax * ax;
+  const float ax3 = ax2 * ax;
+  const float inner = (a + 2.0f) * ax3 - (a + 3.0f) * ax2 + 1.0f;
+  const float outer = a * (ax3 - 5.0f * ax2 + 8.0f * ax - 4.0f);
+  return ax < 1.0f ? inner : (ax < 2.0f ? outer : 0.0f);
+}
+
+// The four taps of a cubic 1-D resample at integer coordinate `coord` of an
+// axis of extent n, with displacement `disp` clamped to +-max_disp and the
+// position clamped into [0, n-1]. Of the Pallas roll sweep only the taps
+// floor(pos)-1 .. floor(pos)+2 have weight; the caller adds them in this
+// order (m = 0..3) to a zero accumulator, as the sweep does. The cost does
+// not grow with max_disp.
+struct CubicTaps {
+  int i[4];
+  float w[4];
+};
+
+__device__ __forceinline__ CubicTaps cubic_taps(int coord, float disp, int n,
+                                                float max_disp) {
+  const float cf = (float)coord;
+  const float top = (float)(n - 1);
+  const float dc = fminf(fmaxf(disp, -max_disp), max_disp);
+  const float pos = fminf(fmaxf(cf + dc, 0.0f), top);
+  const float d = pos - cf;
+  const float fl = floorf(pos);
+  CubicTaps t;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float tap = fl + (float)(m - 1);
+    t.w[m] = cubic_weight(d - (tap - cf));
+    t.i[m] = (int)fminf(fmaxf(tap, 0.0f), top);
+  }
   return t;
 }
 

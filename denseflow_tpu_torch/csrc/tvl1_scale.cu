@@ -11,9 +11,10 @@
 // its first block ends the pair's warp loop.
 //
 // The TPU kernel's roll sweep over [k_lo, k_hi] becomes a direct 4-tap load
-// per pixel per axis at floor(pos)-1 .. floor(pos)+2 with clamped indices:
-// the same nonzero terms, added in the same ascending order, at a cost that
-// does not grow with max_disp (auto-escalation re-solves at 80 and 1020 px).
+// per pixel per axis at floor(pos)-1 .. floor(pos)+2 with clamped indices
+// (plane_ops::cubic_taps): the same nonzero terms, added in the same
+// ascending order, at a cost that does not grow with max_disp
+// (auto-escalation re-solves at 80 and 1020 px).
 //
 // Design: one thread block (CTA) per pair, grid = B. The Pallas kernel's
 // grid runs one pair per step with the pair's whole state on chip; on
@@ -44,7 +45,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "plane_ops.cuh"
+
 namespace {
+
+using plane_ops::CubicTaps;
 
 constexpr int kThreads = 1024;
 constexpr int kScratchPlanes = 12;
@@ -55,17 +60,6 @@ struct Params {
   float l_t, theta, taut, thresh, max_disp;
   int iterations, warps, check_every;
 };
-
-__device__ __forceinline__ float cubic(float x) {
-  // cubic-convolution kernel, a = -0.75 (OpenCV INTER_CUBIC), support (-2, 2)
-  const float a = -0.75f;
-  float ax = fabsf(x);
-  float ax2 = ax * ax;
-  float ax3 = ax2 * ax;
-  float inner = (a + 2.0f) * ax3 - (a + 3.0f) * ax2 + 1.0f;
-  float outer = a * (ax3 - 5.0f * ax2 + 8.0f * ax - 4.0f);
-  return ax < 1.0f ? inner : (ax < 2.0f ? outer : 0.0f);
-}
 
 // Sum of `v` over the block in a fixed order; every thread gets the total.
 __device__ float block_sum(float v, float* red, float* out) {
@@ -123,21 +117,14 @@ tvl1_scale_kernel(const float* __restrict__ I0, const float* __restrict__ I1,
     // ---- warp, pass 1: along rows (axis 0) at displacement u2 ----
     for (int i = threadIdx.x; i < hw; i += kThreads) {
       const int r = i / w, c = i - r * w;
-      const float coord = (float)r;
-      float d = fminf(fmaxf(u2[i], -md), md);
-      const float pos = fminf(fmaxf(coord + d, 0.0f), (float)(h - 1));
-      d = pos - coord;
-      const float fl = floorf(pos);
+      const CubicTaps t = plane_ops::cubic_taps(r, u2[i], h, md);
       float oa = 0.0f, ob = 0.0f, oc = 0.0f;
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        const float t = fl + (float)(m - 1);
-        const float cw = cubic(d - (t - coord));
-        const int ti = (int)fminf(fmaxf(t, 0.0f), (float)(h - 1));
-        const int j = ti * w + c;
-        oa = oa + cw * __ldg(I1 + j);
-        ob = ob + cw * __ldg(I1x + j);
-        oc = oc + cw * __ldg(I1y + j);
+        const int j = t.i[m] * w + c;
+        oa = oa + t.w[m] * __ldg(I1 + j);
+        ob = ob + t.w[m] * __ldg(I1x + j);
+        oc = oc + t.w[m] * __ldg(I1y + j);
       }
       t1[i] = oa; t1x[i] = ob; t1y[i] = oc;
     }
@@ -145,22 +132,15 @@ tvl1_scale_kernel(const float* __restrict__ I0, const float* __restrict__ I1,
     // ---- pass 2: along columns (axis 1) at u1, then the warp constants ----
     for (int i = threadIdx.x; i < hw; i += kThreads) {
       const int r = i / w, c = i - r * w;
-      const float coord = (float)c;
       const float a = u1[i], b = u2[i];
-      float d = fminf(fmaxf(a, -md), md);
-      const float pos = fminf(fmaxf(coord + d, 0.0f), (float)(w - 1));
-      d = pos - coord;
-      const float fl = floorf(pos);
+      const CubicTaps t = plane_ops::cubic_taps(c, a, w, md);
       float ow = 0.0f, ox = 0.0f, oy = 0.0f;
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        const float t = fl + (float)(m - 1);
-        const float cw = cubic(d - (t - coord));
-        const int ti = (int)fminf(fmaxf(t, 0.0f), (float)(w - 1));
-        const int j = r * w + ti;
-        ow = ow + cw * t1[j];
-        ox = ox + cw * t1x[j];
-        oy = oy + cw * t1y[j];
+        const int j = r * w + t.i[m];
+        ow = ow + t.w[m] * t1[j];
+        ox = ox + t.w[m] * t1x[j];
+        oy = oy + t.w[m] * t1y[j];
       }
       const float grad = ox * ox + oy * oy;
       wx[i] = ox;

@@ -1,10 +1,11 @@
 """Plane operations shared by the kernels' plain PyTorch versions.
 
 The counterparts of the JAX package's in-kernel helpers
-(`denseflow_tpu/kernels/common.py::make_plane_ops`) that Farneback uses:
-the linear `resample` and `box_sum`. `csrc/plane_ops.cuh` holds the same
-operations as `__device__` helpers for the CUDA kernels, in the same order
-of float operations, so a kernel and its plain version agree bit for bit.
+(`denseflow_tpu/kernels/common.py::make_plane_ops`): `shift`, `conv_taps`,
+`box_sum` and `resample`, linear (Farneback) or cubic (TVL1, Brox).
+`csrc/plane_ops.cuh` holds the same operations as `__device__` helpers for
+the CUDA kernels, in the same order of float operations, so a kernel and its
+plain version agree bit for bit.
 
 The Pallas helpers work on a plane padded up to (8, 128) tiles and mask
 the padded band; here a plane is exactly its real extent, and an index
@@ -51,6 +52,66 @@ def resample_linear(p: torch.Tensor, disp: torch.Tensor, dim: int,
         idx = torch.clamp(coords + k, 0.0, float(n - 1)).to(torch.int64)
         out = out + c * torch.gather(p, dim, idx.expand(out.shape))
     return out
+
+
+def shift(p: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """shift(p, k)[y] = p[clamp(y + k, 0, n - 1)] along `dim`, n the
+    plane's extent (replicate borders)."""
+    if k == 0:
+        return p
+    dim = dim % p.dim()
+    n = p.shape[dim]
+    idx = torch.clamp(torch.arange(n, device=p.device) + k, 0, n - 1)
+    return torch.index_select(p, dim, idx)
+
+
+def conv_taps(p: torch.Tensor, taps, dim: int, center: int) -> torch.Tensor:
+    """sum_i f32(taps[i]) * shift(p, i - center) along `dim`, in the float
+    order of the Pallas helper: zero taps are skipped, the first nonzero
+    term starts the sum and the others are added in ascending order (so not
+    the order of `ops/filters.conv1d`, which adds the zero taps too)."""
+    out = None
+    for i, c in enumerate(taps):
+        if c == 0.0:
+            continue
+        term = float(np.float32(c)) * shift(p, i - center, dim)
+        out = term if out is None else out + term
+    return out
+
+
+def cubic_weight(x: torch.Tensor) -> torch.Tensor:
+    """Cubic-convolution kernel, a=-0.75 (OpenCV INTER_CUBIC), support (-2,2)."""
+    a = -0.75
+    ax = torch.abs(x)
+    ax2 = ax * ax
+    ax3 = ax2 * ax
+    inner = (a + 2.0) * ax3 - (a + 3.0) * ax2 + 1.0
+    outer = a * (ax3 - 5.0 * ax2 + 8.0 * ax - 4.0)
+    return torch.where(ax < 1.0, inner, torch.where(ax < 2.0, outer, 0.0))
+
+
+def resample_cubic(planes, disp: torch.Tensor, dim: int, max_disp: float):
+    """Cubic 1-D resample of each plane in `planes` along `dim` at per-pixel
+    displacement `disp` (the planes' shape): the displacement is clamped to
+    +-max_disp (a float32 value) and the position into [0, n-1]. Of the
+    Pallas roll sweep only the taps floor(pos)-1 .. floor(pos)+2 have
+    weight; they are added in ascending order to a zero accumulator, as the
+    sweep adds them. Returns a list like `planes`."""
+    dim = dim % disp.dim()
+    n = disp.shape[dim]
+    coords = _coords(n, dim, disp.dim(), disp.device)
+    d = torch.clamp(disp, -max_disp, max_disp)
+    pos = torch.clamp(coords + d, 0.0, float(n - 1))
+    d = pos - coords
+    fl = torch.floor(pos)
+    outs = [torch.zeros_like(disp) for _ in planes]
+    for m in range(4):
+        t = fl + float(m - 1)
+        c = cubic_weight(d - (t - coords))
+        idx = torch.clamp(t, 0.0, float(n - 1)).to(torch.int64)
+        for k, p in enumerate(planes):
+            outs[k] = outs[k] + c * torch.gather(p, dim, idx)
+    return outs
 
 
 def check_window(win: int) -> None:

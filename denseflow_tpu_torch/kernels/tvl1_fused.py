@@ -23,6 +23,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from denseflow_tpu_torch.kernels.plane_ops import resample_cubic
+
 _GRAD_EPS = 1.1920929e-07  # numeric_limits<float>::epsilon(), OpenCV's guard
 
 
@@ -34,41 +36,6 @@ def _f32(x: float) -> float:
 def _threshold(epsilon: float, h: int, w: int) -> float:
     """The stop threshold eps^2*h*w in float32; -1 disables the stop."""
     return _f32(epsilon * epsilon * h * w) if epsilon > 0 else -1.0
-
-
-def _cubic(x: torch.Tensor) -> torch.Tensor:
-    """Cubic-convolution kernel, a=-0.75 (OpenCV INTER_CUBIC), support (-2,2)."""
-    a = -0.75
-    ax = torch.abs(x)
-    ax2 = ax * ax
-    ax3 = ax2 * ax
-    inner = (a + 2.0) * ax3 - (a + 3.0) * ax2 + 1.0
-    outer = a * (ax3 - 5.0 * ax2 + 8.0 * ax - 4.0)
-    return torch.where(ax < 1.0, inner, torch.where(ax < 2.0, outer, 0.0))
-
-
-def _resample3(planes, disp: torch.Tensor, dim: int, max_disp: float):
-    """1-D cubic resample of three (B, H, W) planes along `dim` (1 = rows,
-    2 = columns) at per-pixel displacement `disp`, clamped to +-max_disp,
-    with positions and taps clamped to the image (replicate borders). The
-    four taps floor(pos)-1 .. floor(pos)+2 are summed in ascending order,
-    which is the order of the Pallas kernel's roll sweep."""
-    n = disp.shape[dim]
-    shape = [1, 1, 1]
-    shape[dim] = n
-    coords = torch.arange(n, dtype=torch.float32, device=disp.device).reshape(shape)
-    d = torch.clamp(disp, -max_disp, max_disp)
-    pos = torch.clamp(coords + d, 0.0, float(n - 1))
-    d = pos - coords
-    fl = torch.floor(pos)
-    outs = [torch.zeros_like(disp) for _ in planes]
-    for m in range(4):
-        t = fl + float(m - 1)
-        c = _cubic(d - (t - coords))
-        idx = torch.clamp(t, 0.0, float(n - 1)).to(torch.int64)
-        for k, p in enumerate(planes):
-            outs[k] = outs[k] + c * torch.gather(p, dim, idx)
-    return outs
 
 
 def _div(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
@@ -120,8 +87,8 @@ def tvl1_scale_reference(
     for _ in range(warps):
         if not bool(warp_on.any()):
             break
-        t1, t1x, t1y = _resample3((I1, I1x, I1y), u2, 1, max_disp)
-        I1w, I1wx, I1wy = _resample3((t1, t1x, t1y), u1, 2, max_disp)
+        t1, t1x, t1y = resample_cubic((I1, I1x, I1y), u2, 1, max_disp)
+        I1w, I1wx, I1wy = resample_cubic((t1, t1x, t1y), u1, 2, max_disp)
         grad = I1wx * I1wx + I1wy * I1wy
         rho_c = I1w - I1wx * u1 - I1wy * u2 - I0
         fi = l_t * grad

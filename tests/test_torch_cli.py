@@ -132,7 +132,7 @@ def test_step0_extracts_frames_like_jax(vid, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--devices=4", "A10"), ("-a=brox", "A9"), ("-st=png", "A6"), ("-st=h5", "A6"),
+    ("--devices=4", "A10"), ("--devices=3", "A10"), ("-st=png", "A6"), ("-st=h5", "A6"),
     ("--devices=2", "A10"), ("--distributed", "A10"),
 ])
 def test_unported_flags_fail_clearly(vid, tmp_path, capsys, flag, item):

@@ -112,8 +112,8 @@ def test_config_defaults_match():
 
 
 @pytest.mark.parametrize("kw,flag,item", [
-    (dict(algorithm="brox", save_type="png", step=1), "-a=brox", "A9"),
-    (dict(algorithm="brox", step=-1), "-a=brox", "A9"),
+    (dict(algorithm="brox", save_type="png", step=1), "-st=png", "A6"),
+    (dict(algorithm="brox", devices=2, step=-1), "--devices>1", "A10"),
     (dict(save_type="png", step=1), "-st=png", "A6"),
     (dict(save_type="h5", step=2), "-st=h5", "A6"),
     (dict(devices=2), "--devices>1", "A10"),
@@ -124,6 +124,13 @@ def test_unported_features_name_their_roadmap_item(kw, flag, item):
     jcfg.FlowConfig(input="x", **kw).validate()
     with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md {item}"):
         tcfg.FlowConfig(input="x", **kw).validate()
+
+
+@pytest.mark.parametrize("step", [1, -1, 2])
+def test_brox_validates_as_in_jax(step):
+    """-a=brox is ported: accepted wherever the JAX package accepts it."""
+    for cfg in (jcfg, tcfg):
+        cfg.FlowConfig(input="x", algorithm="brox", step=step, preset="fast").validate()
 
 
 def test_frame_extraction_ignores_flow_only_limits():

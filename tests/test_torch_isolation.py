@@ -31,6 +31,8 @@ def test_every_module_imports_without_jax():
     assert "denseflow_tpu_torch.kernels.tvl1_fused" in mods
     assert "denseflow_tpu_torch.kernels.farneback_fused" in mods
     assert "denseflow_tpu_torch.algorithms.farneback" in mods
+    assert "denseflow_tpu_torch.kernels.brox_fused" in mods
+    assert "denseflow_tpu_torch.algorithms.brox" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -85,7 +87,7 @@ def test_entry_points_refuse_missing_card(tmp_path):
     from denseflow_tpu_torch.config import FlowConfig
     from denseflow_tpu_torch.executor import DeviceExecutor
 
-    for alg in ("tvl1", "farn"):
+    for alg in ("tvl1", "farn", "brox"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_solver(alg, 32, 40)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -99,6 +101,7 @@ def test_entry_points_refuse_missing_card(tmp_path):
     # the CLI reports it and fails; nothing was written
     assert main([str(video), f"-o={tmp_path / 'o'}", "-s=1"]) == 1
     assert main([str(video), f"-o={tmp_path / 'o'}", "-s=1", "-a=farn"]) == 1
+    assert main([str(video), f"-o={tmp_path / 'o'}", "-s=1", "-a=brox"]) == 1
     assert not (tmp_path / "o").exists()
 
 

@@ -84,8 +84,11 @@ def test_params_defaults_match_jax():
 
 
 def test_unported_algorithms_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        solver_params("brox")
+    # brox is ported (ROADMAP.md A9): its preset resolves; an unknown name
+    # still raises the reference's error
+    from denseflow_tpu_torch.algorithms.brox import BroxParams
+
+    assert solver_params("brox") == BroxParams()
     with pytest.raises(ValueError, match="not supported"):
         solver_params("dis")
 
