@@ -10,8 +10,13 @@ Phases (each prints its lines; any failure exits non-zero):
 3. each kernel against its plain PyTorch version, on the card: at every
    pyramid scale of one main-path slab (16 pairs of the bench video,
    decoded and resized to 256x341 by the port's reader, through the port's
-   `tvl1_flow`), timed with CUDA events beside its bound; then at an odd
-   shape and with a flow beyond the displacement clamp;
+   `tvl1_flow`), with the kernel's plan (CTAs a pair, placement, shared
+   memory, clusters the card holds at once), each pair's iterations and
+   warps equal to the plain version's, timed with CUDA events beside its
+   bound and beside the plans it did not pick; then at an odd shape, with a
+   flow beyond the displacement clamp, and at 360x480 (B=2) and 1080x1920
+   (B=1), where the state lies in device memory, each pair alone against
+   its batch;
 4. full-width fidelity: the port's TVL1 on the repo's goldens
    (tests/golden/*.npz), mean EPE <= 0.5 px against the oracle and the
    analytic flow, the repo's gate (tests/test_fidelity.py);
@@ -187,25 +192,32 @@ def textured_pairs(b, h, w, shift, seed):
     return clip(I0), clip(I1)
 
 
-def _compare(name, args, kw):
+def _compare(name, args, kw, same_counts=False, plain=None):
     """tvl1_scale vs tvl1_scale_reference on the same card tensors; returns
-    (kernel out, max |du|) and fails over KERNEL_TOL."""
+    (kernel out, plain out, max |du|) and fails over KERNEL_TOL, or, with
+    `same_counts`, when a pair's iterations or warps differ. `plain` is
+    the plain version's output where it was computed already."""
     import torch
 
     from denseflow_tpu_torch.kernels.tvl1_fused import tvl1_scale, tvl1_scale_reference
 
     k = tvl1_scale(*args, **kw)
-    r = tvl1_scale_reference(*args, **kw)
+    r = tvl1_scale_reference(*args, **kw) if plain is None else plain
     torch.cuda.synchronize()
     du = torch.cat([(k[0] - r[0]).abs().flatten(), (k[1] - r[1]).abs().flatten()])
     mean_d, max_d = float(du.mean()), float(du.max())
+    kc, rc = k[2].cpu(), r[2].cpu()
     log(f"[kernel] tvl1_scale {name}: mean|du| {mean_d:.3g} px, max|du| "
-        f"{max_d:.3g} px (limit mean {KERNEL_TOL}); iterations kernel "
-        f"{k[2][:, 0].tolist()} plain {r[2][:, 0].tolist()}; warps kernel "
-        f"{k[2][:, 1].tolist()} plain {r[2][:, 1].tolist()}")
+        f"{max_d:.3g} px (limit mean {KERNEL_TOL}); bit-equal "
+        f"{torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])}; iterations kernel "
+        f"{kc[:, 0].tolist()} plain {rc[:, 0].tolist()}; warps kernel "
+        f"{kc[:, 1].tolist()} plain {rc[:, 1].tolist()}")
     if not (mean_d <= KERNEL_TOL):
         raise SystemExit(f"tvl1_scale disagrees with its plain version on {name}")
-    return k, max_d
+    if same_counts and not torch.equal(kc, rc):
+        raise SystemExit(f"tvl1_scale ran other iterations or warps than its plain "
+                         f"version on {name}")
+    return k, r, max_d
 
 
 def main_path_slab(video: Path):
@@ -223,12 +235,40 @@ def main_path_slab(video: Path):
     return frames[:PAIR_BATCH], frames[1:PAIR_BATCH + 1]
 
 
+def _plan_line(plan, h: int, w: int) -> str:
+    import torch
+
+    from denseflow_tpu_torch.kernels.tvl1_fused import max_active_clusters
+
+    active = max_active_clusters(plan, h, w, torch.device(DEVICE))
+    return (f"{plan.n} CTAs a pair, {plan.placement} placement, "
+            f"{plan.smem_bytes} B shared memory a CTA, {active} clusters at once")
+
+
+def _other_plans(h: int, w: int, plan):
+    """The plans beside `plan` that phase 3 times at a main-path scale: the
+    shared placement with the fewest CTAs whose bands fit and with 4, 6, 8
+    and 16 where they fit, and every plane in device memory with 16."""
+    from denseflow_tpu_torch.kernels.tvl1_fused import _fits, _make_plan
+
+    shared = [_make_plan(h, w, n, "shared") for n in range(1, min(16, h) + 1)]
+    shared = [p for p in shared if _fits(p)]
+    out = shared[:1] + [p for p in shared if p.n in (4, 6, 8, 16)]
+    out.append(_make_plan(h, w, min(16, h), "device"))
+    return [p for i, p in enumerate(out) if p != plan and p not in out[:i]]
+
+
 def phase_kernels(video: Path, card: str) -> list:
     """tvl1_scale (CUDA) vs tvl1_scale_reference (PyTorch) on the card."""
     import torch
 
     import denseflow_tpu_torch.algorithms.tvl1 as tv
-    from denseflow_tpu_torch.kernels.tvl1_fused import tvl1_scale, tvl1_scale_reference
+    from denseflow_tpu_torch.kernels.tvl1_fused import (
+        _launch,
+        _plan,
+        tvl1_scale,
+        tvl1_scale_reference,
+    )
     from denseflow_tpu_torch.ops.derivatives import centered_gradient
 
     dev = torch.device(DEVICE)
@@ -251,8 +291,10 @@ def phase_kernels(video: Path, card: str) -> list:
     worst = 0.0
     for args, kw in calls:
         b, h, w = args[0].shape
-        k, max_d = _compare(f"main path {h}x{w} B={b} max_disp "
-                            f"{kw['max_disp']:g}", args, kw)
+        plan = _plan(h, w)
+        log(f"[kernel] tvl1_scale {h}x{w} plan: {_plan_line(plan, h, w)}")
+        k, r, max_d = _compare(f"main path {h}x{w} B={b} max_disp "
+                               f"{kw['max_disp']:g}", args, kw, same_counts=True)
         worst = max(worst, max_d)
         ms = cuda_ms(lambda: tvl1_scale(*args, **kw), 5)
         plain_ms = cuda_ms(lambda: tvl1_scale_reference(*args, **kw), 2)
@@ -263,6 +305,16 @@ def phase_kernels(video: Path, card: str) -> list:
         log(f"[kernel] tvl1_scale {h}x{w} B={b}: kernel {ms:.6g} ms, plain "
             f"{plain_ms:.6g} ms, bound {max(t_bytes, t_ops):.6g} ms (bytes "
             f"{t_bytes:.6g}, operations {t_ops:.6g}); {card}")
+        # the plans _plan did not pick, on the same inputs
+        for other in _other_plans(h, w, plan):
+            ko = _launch(*args, **kw, plan=other)
+            torch.cuda.synchronize()
+            d = max(float((ko[i] - r[i]).abs().mean()) for i in (0, 1))
+            if not (d <= KERNEL_TOL and torch.equal(ko[2], r[2])):
+                raise SystemExit(f"tvl1_scale with {other} disagrees at {h}x{w}")
+            o_ms = cuda_ms(lambda: _launch(*args, **kw, plan=other), 5)
+            log(f"[kernel] tvl1_scale {h}x{w} B={b} not taken: "
+                f"{_plan_line(other, h, w)}: {o_ms:.6g} ms; {card}")
     log(f"[kernel] tvl1_scale one slab, {len(calls)} scales: kernel "
         f"{totals['ms']:.6g} ms, plain {totals['plain_ms']:.6g} ms; {card}")
 
@@ -271,6 +323,9 @@ def phase_kernels(video: Path, card: str) -> list:
         # (name, B, h, w, max_disp, initial u)
         ("odd 37x53 B=3", 3, 37, 53, 4.0, 0.0),
         ("clamp 64x80 B=4 (u0 beyond max_disp)", 4, 64, 80, 3.0, 7.5),
+        # no -ns: no cluster holds the state, every plane in device memory
+        ("360x480 B=2", 2, 360, 480, 40.0, 0.0),
+        ("1080x1920 B=1", 1, 1080, 1920, 40.0, 0.0),
     ]
     for name, b, h, w, md, u0 in extra:
         I0n, I1n = textured_pairs(b, h, w, rng.uniform(-2.0, 2.0, (b, 2)),
@@ -282,15 +337,21 @@ def phase_kernels(video: Path, card: str) -> list:
         u2 = torch.full((b, h, w), -u0, dtype=torch.float32, device=dev)
         kw = dict(calls[0][1], max_disp=md)
         args = (I0, I1, I1x, I1y, u1, u2)
-        k, max_d = _compare(name, args, kw)
+        plan = _plan(h, w)
+        log(f"[kernel] tvl1_scale {name} plan: {_plan_line(plan, h, w)}")
+        plain, plain_ms = cuda_ms_once(lambda: tvl1_scale_reference(*args, **kw))
+        k, _, max_d = _compare(name, args, kw, plain=plain)
         worst = max(worst, max_d)
+        ms = cuda_ms(lambda: tvl1_scale(*args, **kw), 3)
+        log(f"[kernel] tvl1_scale {name}: kernel {ms:.6g} ms, plain {plain_ms:.6g} ms; {card}")
         # each pair alone gives the bytes it gave in the batch: the stop
         # test of a pair does not depend on its batch-mates
-        for i in range(b):
+        for i in range(b if b > 1 else 0):
             one = tvl1_scale(*(a[i:i + 1].contiguous() for a in args), **kw)
             if not all(torch.equal(x[i:i + 1], y) for x, y in zip(k, one)):
                 raise SystemExit(f"tvl1_scale pair {i} of {name} depends on its batch")
-        log(f"[kernel] tvl1_scale {name}: each pair alone equals its batched result")
+        if b > 1:
+            log(f"[kernel] tvl1_scale {name}: each pair alone equals its batched result")
     return [{
         "name": "tvl1_scale", "route": "cuda",
         "source": "denseflow_tpu_torch/csrc/tvl1_scale.cu",

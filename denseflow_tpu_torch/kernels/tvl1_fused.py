@@ -1,5 +1,5 @@
 """One TVL1 pyramid scale per frame pair: the hand-written CUDA kernel
-(`csrc/tvl1_scale.cu`) and its plain PyTorch version.
+(`csrc/tvl1_scale.cu`), its plan, and its plain PyTorch version.
 
 Both compute what the JAX package's Pallas kernel
 `denseflow_tpu/kernels/tvl1_fused.py::tvl1_scale_fused` computes (its body
@@ -7,6 +7,27 @@ Both compute what the JAX package's Pallas kernel
 bicubic passes (rows at u2, then columns at u1), the epsilon stop is tested
 every `check_every` iterations, and a warp that converges in its first
 check block ends the pair's warp loop.
+
+The kernel runs a thread-block cluster of n CTAs per pair; CTA k owns a
+band of full-width rows. Inside an iteration the only reads that leave a
+band are p12, p22 of the row above it and u1, u2 of the row below, so the
+pair needs one cluster barrier after each of the two steps, and the halo
+rows go between neighbouring CTAs through distributed shared memory.
+`_plan(h, w)` picks n, the bands and where the state lives, from (h, w)
+alone, so a pair's bytes never depend on its batch-mates or on B:
+
+- "shared": the nine planes of the loop (36 B a pixel) in the CTAs' shared
+  memory. Every main-path scale (256x341 and its pyramid) fits a cluster of
+  at most 16 CTAs of 227 KB each, and takes this placement: 6 CTAs at
+  105x140 to 164x218, 16 at 205x273 and 256x341.
+- "device": every plane in band-owned device memory, halo rows read through
+  L2. Geometries whose state no cluster holds (360x480, 1080x1920 without
+  `-ns`) take it, so the kernel computes the untiled answer there too.
+
+What bounds the kernel on an H100, as measured, is in PERF.md and in the
+header of `csrc/tvl1_scale.cu`: not bytes, nor the f32 rate, but the
+per-iteration cost of a band on one SM and the two cluster barriers, and at
+205x273 and 256x341 the three waves of 16-CTA clusters a 16-pair slab needs.
 
 The JAX package tiles planes whose working set exceeds VMEM
 (`tvl1_scale_fused_tiled`, `plan_tiles`); its 256x341 bench geometry takes
@@ -17,6 +38,7 @@ the untiled answer at every geometry and ports no tiling.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -152,44 +174,153 @@ def _check_args(planes, check_every: int) -> None:
         raise ValueError("check_every must be >= 1")
 
 
+# The kernel's placements, in the order of csrc/tvl1_scale.cu's Placement.
+_PLACEMENTS = ("device", "shared")
+_LOOP_PLANES = 9  # u1, u2, p11, p12, p21, p22, I1wx, I1wy, rho_c
+_HALO_ROWS = 4  # p12, p22 of the row above a band; u1, u2 of the row below
+_SMEM_LIMIT = 232_448  # shared memory one CTA may use on sm_90 (227 KB)
+_SMEM_STATIC = 256  # at least the kernel's own __shared__ arrays (144 B)
+_MAX_CTAS = 16  # a non-portable cluster
+# The widest cluster of which a main-path slab's 16 pairs fit on an H100 at
+# once: 17 clusters of 6 one-CTA-per-SM blocks do, of 7 or 8 only 15, of
+# 12 to 16 only 7 (cudaOccupancyMaxActiveClusters; PERF.md).
+_ONE_WAVE_CTAS = 6
+_PX_PER_CTA = 2048  # fewer CTAs below about two pixels a thread
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel lays one pair out: `n` CTAs, one thread-block
+    cluster; CTA k owns rows starts[k] .. starts[k+1]-1; `placement` is
+    where the state lives; `smem_bytes` is the dynamic shared memory of a
+    CTA, `scratch_planes` the (h, w) planes of device memory a pair needs
+    besides the outputs."""
+
+    n: int
+    starts: Tuple[int, ...]
+    placement: str
+    smem_bytes: int
+    scratch_planes: int
+
+
+def _make_plan(h: int, w: int, n: int, placement: str) -> Plan:
+    """The plan of n bands, as even as rows allow, with `placement`."""
+    if placement not in _PLACEMENTS:
+        raise ValueError(f"tvl1_scale: no placement {placement!r}")
+    if not 1 <= n <= min(_MAX_CTAS, h):
+        raise ValueError(f"tvl1_scale: {n} bands of {h} rows")
+    q, extra = divmod(h, n)
+    starts = [0]
+    for k in range(n):
+        starts.append(starts[-1] + q + (k < extra))
+    if placement == "shared":
+        rows = q + (extra > 0)
+        smem = 4 * (_LOOP_PLANES * rows * w + _HALO_ROWS * w)
+        scratch = 3  # t1, t1x, t1y
+    else:
+        smem = 0
+        scratch = 3 + _LOOP_PLANES - 2  # u1, u2 are the outputs
+    return Plan(n, tuple(starts), placement, smem, scratch)
+
+
+def _fits(plan: Plan) -> bool:
+    return plan.smem_bytes + _SMEM_STATIC <= _SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(h: int, w: int) -> Plan:
+    """The kernel's plan for an (h, w) scale, from (h, w) alone.
+
+    The state in shared memory in a cluster of up to _ONE_WAVE_CTAS CTAs of
+    about _PX_PER_CTA pixels or more; where that cluster cannot hold it,
+    in one of 16 (more waves, but the smallest bands); where 16 cannot
+    either, every plane in device memory."""
+    n = min(_ONE_WAVE_CTAS, h, max(1, -(-h * w // _PX_PER_CTA)))
+    for plan in (_make_plan(h, w, n, "shared"),
+                 _make_plan(h, w, min(_MAX_CTAS, h), "shared")):
+        if _fits(plan):
+            return plan
+    return _make_plan(h, w, min(_MAX_CTAS, h), "device")
+
+
+def _c_plan(plan: Plan, h: int, w: int) -> tuple:
+    """The plan as the C functions take it, after (h, w)."""
+    starts = (ctypes.c_int * len(plan.starts))(*plan.starts)
+    return (_PLACEMENTS.index(plan.placement), plan.n, starts,
+            plan.smem_bytes, plan.scratch_planes)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from denseflow_tpu_torch.kernels import _build
 
     lib = _build.load("tvl1_scale")
+    plan_args = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                 ctypes.c_int, ctypes.c_int]
     lib.tvl1_scale_launch.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + plan_args + [ctypes.c_void_p]
     )
     lib.tvl1_scale_launch.restype = ctypes.c_int
-    lib.tvl1_scale_scratch_planes.argtypes = []
-    lib.tvl1_scale_scratch_planes.restype = ctypes.c_int
+    lib.tvl1_scale_max_active_clusters.argtypes = (
+        [ctypes.c_int] * 2 + plan_args + [ctypes.POINTER(ctypes.c_int)])
+    lib.tvl1_scale_max_active_clusters.restype = ctypes.c_int
     return lib
 
 
+_active: dict = {}
+
+
+def max_active_clusters(plan: Plan, h: int, w: int, device: torch.device) -> int:
+    """How many clusters of `plan` fit on `device` at once
+    (cudaOccupancyMaxActiveClusters). Raises if the kernel does not take
+    the plan, or if not one cluster of it fits: no smaller plan is run in
+    its place."""
+    key = (torch.cuda.current_device() if device.index is None else device.index,
+           h, w, plan)
+    if key not in _active:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            rc = _lib().tvl1_scale_max_active_clusters(
+                h, w, *_c_plan(plan, h, w), ctypes.byref(out))
+        if rc == -1:
+            raise ValueError(f"tvl1_scale: the kernel does not take {plan} at {h}x{w}")
+        if rc != 0:
+            raise RuntimeError(f"tvl1_scale: occupancy query failed for {plan} "
+                               f"at {h}x{w}: CUDA error {rc}")
+        if out.value < 1:
+            raise RuntimeError(f"tvl1_scale: the card cannot schedule {plan} at {h}x{w}")
+        _active[key] = out.value
+    return _active[key]
+
+
 def _launch(I0, I1, I1x, I1y, u1, u2, l_t, theta, taut, epsilon,
-            iterations, warps, max_disp, check_every):
-    lib = _lib()
+            iterations, warps, max_disp, check_every, plan=None):
+    """Launch the kernel with `plan` (default `_plan(h, w)`)."""
     planes = (I0, I1, I1x, I1y, u1, u2)
     b, h, w = u1.shape
-    u1o = torch.empty_like(planes[4])
-    u2o = torch.empty_like(planes[4])
+    plan = _plan(h, w) if plan is None else plan
+    u1o = torch.empty_like(u1)
+    u2o = torch.empty_like(u1)
     counts = torch.empty((b, 2), dtype=torch.int32, device=u1.device)
     if b == 0:
         return u1o, u2o, counts
-    scratch = torch.empty(
-        (b, lib.tvl1_scale_scratch_planes(), h, w), dtype=torch.float32,
-        device=u1.device,
-    )
+    max_active_clusters(plan, h, w, u1.device)
+    scratch = torch.empty((b, plan.scratch_planes, h, w), dtype=torch.float32,
+                          device=u1.device)
     stream = torch.cuda.current_stream(u1.device).cuda_stream
-    rc = lib.tvl1_scale_launch(
+    rc = _lib().tvl1_scale_launch(
         *(p.data_ptr() for p in planes), u1o.data_ptr(), u2o.data_ptr(),
         scratch.data_ptr(), counts.data_ptr(), b, h, w,
         _f32(l_t), _f32(theta), _f32(taut), _threshold(epsilon, h, w),
-        _f32(max_disp), int(iterations), int(warps), int(check_every), stream,
+        _f32(max_disp), int(iterations), int(warps), int(check_every),
+        *_c_plan(plan, h, w), stream,
     )
+    if rc == -1:
+        raise ValueError(f"tvl1_scale: the kernel does not take {plan} at {h}x{w}")
     if rc != 0:
-        raise RuntimeError(f"tvl1_scale kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"tvl1_scale kernel launch failed for {plan} at "
+                           f"{h}x{w}: CUDA error {rc}")
     tvl1_scale.launches += 1
     return u1o, u2o, counts
 

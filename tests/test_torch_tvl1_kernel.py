@@ -7,7 +7,13 @@ same operations in float32, but XLA's CPU fusion and the order of the
 full-plane epsilon sum differ from PyTorch's, so results agree to ~1e-5 px
 on average (measured) rather than bit for bit; the bound leaves room for a
 stop test that lands on the other side of its threshold in one block.
+
+The CUDA kernel's plan (`_plan`: CTAs a pair, row bands, placement, shared
+memory) is plain Python and is tested here too; the kernel itself runs only
+on a card (`chip_smoke.py` phase 3).
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +23,9 @@ import torch
 
 from denseflow_tpu.kernels.tvl1_fused import tvl1_scale_fused
 from denseflow_tpu.ops.derivatives import centered_gradient
+from denseflow_tpu_torch.kernels import tvl1_fused as _tf
 from denseflow_tpu_torch.kernels.tvl1_fused import tvl1_scale, tvl1_scale_reference
+from denseflow_tpu_torch.ops.pyramid import pyramid_shapes
 
 torch.set_num_threads(1)
 
@@ -111,3 +119,70 @@ def test_pairs_are_independent_of_batch_mates():
             **kw)
         for x, y in zip(full, one):
             assert torch.equal(x[i:i + 1], y)
+
+
+# ---- the kernel's plan (kernels/tvl1_fused.py::_plan), on the CPU ----
+
+MAIN_PATH = pyramid_shapes(256, 341, 0.8, 5, 16)
+PLAN_GEOMETRIES = sorted(set(
+    MAIN_PATH
+    + pyramid_shapes(360, 480, 0.8, 5, 16)
+    + pyramid_shapes(1080, 1920, 0.8, 5, 16)
+    + [(37, 53), (16, 22), (16, 26), (16, 16)]  # odd; 16-row coarsest scales
+))
+SMEM_PER_CTA = 232_448  # bytes of shared memory a CTA may use on sm_90
+
+
+def test_main_path_scales_are_the_five_of_256x341():
+    assert MAIN_PATH == [(256, 341), (205, 273), (164, 218), (131, 175), (105, 140)]
+
+
+@pytest.mark.parametrize("hw", PLAN_GEOMETRIES, ids=[f"{h}x{w}" for h, w in PLAN_GEOMETRIES])
+def test_plan_bands_cover_rows_and_fit(hw):
+    h, w = hw
+    plan = _tf._plan(h, w)
+    assert 1 <= plan.n <= 16
+    assert len(plan.starts) == plan.n + 1
+    assert plan.starts[0] == 0 and plan.starts[-1] == h
+    rows = [b - a for a, b in zip(plan.starts, plan.starts[1:])]
+    assert min(rows) >= 1  # every row once, each band at least one row
+    assert max(rows) - min(rows) <= 1
+    assert plan.smem_bytes + _tf._SMEM_STATIC <= SMEM_PER_CTA
+    if plan.placement == "shared":
+        # the nine loop planes of the longest band and the four halo rows
+        assert plan.smem_bytes == 4 * (9 * max(rows) * w + 4 * w)
+        assert plan.scratch_planes == 3
+    else:
+        assert plan.placement == "device"
+        assert plan.smem_bytes == 0 and plan.scratch_planes == 10
+
+
+@pytest.mark.parametrize("hw", PLAN_GEOMETRIES, ids=[f"{h}x{w}" for h, w in PLAN_GEOMETRIES])
+def test_plan_depends_on_h_w_alone(hw):
+    # B never reaches the plan: a pair's bytes cannot depend on its batch
+    assert list(inspect.signature(_tf._plan).parameters) == ["h", "w"]
+    first = _tf._plan(*hw)
+    _tf._plan.cache_clear()
+    assert _tf._plan(*hw) == first
+
+
+PLACEMENTS = [(s, "shared") for s in MAIN_PATH] + [((360, 480), "device"),
+                                                  ((1080, 1920), "device")]
+
+
+@pytest.mark.parametrize("hw,placement", PLACEMENTS,
+                         ids=[f"{h}x{w}" for (h, w), _ in PLACEMENTS])
+def test_plan_placement(hw, placement):
+    plan = _tf._plan(*hw)
+    assert plan.placement == placement
+    if placement == "shared":
+        # the band state of every main-path scale in shared memory: one
+        # wave of clusters of up to 6 where they hold it, else 16
+        assert plan.n in (6, 16)
+
+
+@pytest.mark.parametrize("n,placement", [(0, "shared"), (17, "shared"), (40, "device"),
+                                         (4, "split")])
+def test_make_plan_refuses_what_the_kernel_does_not_run(n, placement):
+    with pytest.raises(ValueError):
+        _tf._make_plan(37, 53, n, placement)
