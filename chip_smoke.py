@@ -40,10 +40,13 @@ Phases (each prints its lines; any failure exits non-zero):
 10. Brox's level kernel against its plain version, as in phase 3: every
     level call of one brox slab of the same 16 pairs (13 levels, 256x341 down
     to 18x23, the reference's full budget of 77 x 10 x 10 with stop_eps
-    1e-3), each call's counts (warps, inner steps, Jacobi sweeps) beside its
-    time and bound; then an odd shape, the coarsest level, a flow past the
-    clamp and a stop_eps=0 case at a reduced budget, each pair alone against
-    its batch;
+    1e-3), with the kernel's plan (CTAs a pair, placement, shared memory,
+    clusters the card holds at once), each pair's counts (warps, inner
+    steps, Jacobi sweeps) equal to the plain version's, timed beside its
+    bound and, at 18x23, 54x72, 105x140, 131x175 and 205x273, beside the
+    plans it did not take; then an odd shape, the coarsest level, a flow past the
+    clamp, a stop_eps=0 case and 360x480 (B=2, device memory) at a reduced
+    budget, each pair alone against its batch;
 11. Brox fidelity at the full budget: mean EPE <= 0.5 px on the four
     analytic goldens (tests/test_fidelity.py:67-77) and a central EPE under
     0.2 px on the 64x80 translation (tests/test_solvers.py:108-117);
@@ -87,8 +90,8 @@ F32_FLOPS = 67e12
 # csrc/tvl1_scale.cu: one primal-dual iteration (23 primal + 30 dual; the
 # epsilon sum adds 7 on one iteration in check_every) and one warp (two
 # 4-tap bicubic passes of ~110 each plus ~14 for the warp constants).
-OPS_PER_PX_ITER = 53
-OPS_PER_PX_WARP = 235
+TVL1_OPS_PER_PX_ITER = 53
+TVL1_OPS_PER_PX_WARP = 235
 
 # f32 operations per pixel of the Brox level, counted from
 # csrc/brox_scale.cu: one Jacobi sweep (the two weighted Laplacians 13 each,
@@ -96,11 +99,12 @@ OPS_PER_PX_WARP = 235
 # _D5 gradients of u + du 44, the sum and 1/sqrt 10; psi_d, the weights and
 # the 2x2 system 75; the inner stop sum 6); one warp (two 4-tap bicubic
 # passes of ~111 each, the derivative planes 23, u += du and the stop 6);
-# the level's four _D5 image gradients, once a call.
-OPS_PER_PX_SWEEP = 36
-OPS_PER_PX_INNER = 135
-OPS_PER_PX_WARP = 252
-OPS_PER_PX_LEVEL = 28
+# the level's four _D5 image gradients, once a call. The interface weights,
+# which the kernel recomputes each sweep from psi_s, count once a step.
+BROX_OPS_PER_PX_SWEEP = 36
+BROX_OPS_PER_PX_INNER = 135
+BROX_OPS_PER_PX_WARP = 252
+BROX_OPS_PER_PX_LEVEL = 28
 
 # f32 operations per pixel of Farneback's kernels, counted from
 # csrc/farneback_polyexp.cu (poly_n = 5, 11 taps: the vertical pass 3 x 21,
@@ -148,8 +152,8 @@ def tvl1_bound_ms(counts, h: int, w: int):
     operations of the iterations and warps these pairs ran (`counts`)."""
     n_px = h * w
     nbytes = 8 * counts.shape[0] * n_px * 4
-    ops = float((counts[:, 0].double() * OPS_PER_PX_ITER
-                 + counts[:, 1].double() * OPS_PER_PX_WARP).sum()) * n_px
+    ops = float((counts[:, 0].double() * TVL1_OPS_PER_PX_ITER
+                 + counts[:, 1].double() * TVL1_OPS_PER_PX_WARP).sum()) * n_px
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
 
 
@@ -235,12 +239,13 @@ def main_path_slab(video: Path):
     return frames[:PAIR_BATCH], frames[1:PAIR_BATCH + 1]
 
 
-def _plan_line(plan, h: int, w: int) -> str:
+def _plan_line(module, plan, h: int, w: int) -> str:
+    """A kernel plan as phases 3 and 10 print it; `module` is the kernel's
+    (`tvl1_fused` or `brox_fused`), whose max_active_clusters asks the
+    card."""
     import torch
 
-    from denseflow_tpu_torch.kernels.tvl1_fused import max_active_clusters
-
-    active = max_active_clusters(plan, h, w, torch.device(DEVICE))
+    active = module.max_active_clusters(plan, h, w, torch.device(DEVICE))
     return (f"{plan.n} CTAs a pair, {plan.placement} placement, "
             f"{plan.smem_bytes} B shared memory a CTA, {active} clusters at once")
 
@@ -249,10 +254,11 @@ def _other_plans(h: int, w: int, plan):
     """The plans beside `plan` that phase 3 times at a main-path scale: the
     shared placement with the fewest CTAs whose bands fit and with 4, 6, 8
     and 16 where they fit, and every plane in device memory with 16."""
-    from denseflow_tpu_torch.kernels.tvl1_fused import _fits, _make_plan
+    from denseflow_tpu_torch.kernels._cluster import fits
+    from denseflow_tpu_torch.kernels.tvl1_fused import _make_plan
 
     shared = [_make_plan(h, w, n, "shared") for n in range(1, min(16, h) + 1)]
-    shared = [p for p in shared if _fits(p)]
+    shared = [p for p in shared if fits(p)]
     out = shared[:1] + [p for p in shared if p.n in (4, 6, 8, 16)]
     out.append(_make_plan(h, w, min(16, h), "device"))
     return [p for i, p in enumerate(out) if p != plan and p not in out[:i]]
@@ -263,6 +269,7 @@ def phase_kernels(video: Path, card: str) -> list:
     import torch
 
     import denseflow_tpu_torch.algorithms.tvl1 as tv
+    from denseflow_tpu_torch.kernels import tvl1_fused
     from denseflow_tpu_torch.kernels.tvl1_fused import (
         _launch,
         _plan,
@@ -292,7 +299,7 @@ def phase_kernels(video: Path, card: str) -> list:
     for args, kw in calls:
         b, h, w = args[0].shape
         plan = _plan(h, w)
-        log(f"[kernel] tvl1_scale {h}x{w} plan: {_plan_line(plan, h, w)}")
+        log(f"[kernel] tvl1_scale {h}x{w} plan: {_plan_line(tvl1_fused, plan, h, w)}")
         k, r, max_d = _compare(f"main path {h}x{w} B={b} max_disp "
                                f"{kw['max_disp']:g}", args, kw, same_counts=True)
         worst = max(worst, max_d)
@@ -314,7 +321,7 @@ def phase_kernels(video: Path, card: str) -> list:
                 raise SystemExit(f"tvl1_scale with {other} disagrees at {h}x{w}")
             o_ms = cuda_ms(lambda: _launch(*args, **kw, plan=other), 5)
             log(f"[kernel] tvl1_scale {h}x{w} B={b} not taken: "
-                f"{_plan_line(other, h, w)}: {o_ms:.6g} ms; {card}")
+                f"{_plan_line(tvl1_fused, other, h, w)}: {o_ms:.6g} ms; {card}")
     log(f"[kernel] tvl1_scale one slab, {len(calls)} scales: kernel "
         f"{totals['ms']:.6g} ms, plain {totals['plain_ms']:.6g} ms; {card}")
 
@@ -338,7 +345,7 @@ def phase_kernels(video: Path, card: str) -> list:
         kw = dict(calls[0][1], max_disp=md)
         args = (I0, I1, I1x, I1y, u1, u2)
         plan = _plan(h, w)
-        log(f"[kernel] tvl1_scale {name} plan: {_plan_line(plan, h, w)}")
+        log(f"[kernel] tvl1_scale {name} plan: {_plan_line(tvl1_fused, plan, h, w)}")
         plain, plain_ms = cuda_ms_once(lambda: tvl1_scale_reference(*args, **kw))
         k, _, max_d = _compare(name, args, kw, plain=plain)
         worst = max(worst, max_d)
@@ -730,8 +737,8 @@ def brox_bound_ms(counts, h: int, w: int):
     px = h * w
     nbytes = 6 * counts.shape[0] * px * 4
     c = counts.double().sum(0)
-    ops = (float(c[0]) * OPS_PER_PX_WARP + float(c[1]) * OPS_PER_PX_INNER
-           + float(c[2]) * OPS_PER_PX_SWEEP + counts.shape[0] * OPS_PER_PX_LEVEL) * px
+    ops = (float(c[0]) * BROX_OPS_PER_PX_WARP + float(c[1]) * BROX_OPS_PER_PX_INNER
+           + float(c[2]) * BROX_OPS_PER_PX_SWEEP + counts.shape[0] * BROX_OPS_PER_PX_LEVEL) * px
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
 
 
@@ -749,9 +756,11 @@ def cuda_ms_once(fn):
     return out, start.elapsed_time(end)
 
 
-def _compare_brox(name, args, kw):
+def _compare_brox(name, args, kw, same_counts=False):
     """brox_scale vs brox_scale_reference on the same card tensors; returns
-    (kernel out, max |du|, plain ms) and fails over KERNEL_TOL."""
+    (kernel out, plain out, max |du|, plain ms) and fails over KERNEL_TOL,
+    or, with `same_counts`, when a pair's warps, inner steps or sweeps
+    differ."""
     import torch
 
     from denseflow_tpu_torch.kernels.brox_fused import brox_scale, brox_scale_reference
@@ -768,7 +777,28 @@ def _compare_brox(name, args, kw):
         f"inner {rc[:, 1].tolist()})")
     if not (mean_d <= KERNEL_TOL):
         raise SystemExit(f"brox_scale disagrees with its plain version on {name}")
-    return k, max_d, plain_ms
+    if same_counts and not torch.equal(kc, rc):
+        raise SystemExit(f"brox_scale ran other warps, inner steps or sweeps than its "
+                         f"plain version on {name}")
+    return k, r, max_d, plain_ms
+
+
+# The plans phase 10 times beside the one `_plan` takes, at five main-path
+# levels: (CTAs a pair, placement).
+BROX_OTHER_PLANS = {
+    # a cluster of 6 in place of the one CTA
+    (18, 23): [(6, "shared")],
+    # 8 CTAs: 15 clusters at once, so the 16th pair waits
+    (54, 72): [(8, "shared")],
+    # fewer and more CTAs in shared memory; the split and device placements
+    (105, 140): [(4, "shared"), (8, "shared"), (16, "shared"), (6, "split"),
+                 (6, "device")],
+    (131, 175): [(8, "shared"), (16, "shared")],
+    # the fewest CTAs that hold the state (14; 7 and 8 for split, 15 of
+    # which fit at once); every plane in device memory
+    (205, 273): [(14, "shared"), (7, "split"), (8, "split"), (16, "split"),
+                 (6, "device"), (16, "device")],
+}
 
 
 def phase_brox_kernels(video: Path, card: str) -> list:
@@ -777,7 +807,8 @@ def phase_brox_kernels(video: Path, card: str) -> list:
     import torch
 
     import denseflow_tpu_torch.algorithms.brox as bx
-    from denseflow_tpu_torch.kernels.brox_fused import brox_scale
+    from denseflow_tpu_torch.kernels import brox_fused
+    from denseflow_tpu_torch.kernels.brox_fused import _launch, _make_plan, _plan, brox_scale
 
     dev = torch.device(DEVICE)
     p = bx.BroxParams()
@@ -799,8 +830,10 @@ def phase_brox_kernels(video: Path, card: str) -> list:
     worst = 0.0
     for args, kw in calls:
         b, h, w = args[0].shape
-        k, max_d, plain_ms = _compare_brox(
-            f"main path {h}x{w} B={b} max_disp {kw['max_disp']:g}", args, kw)
+        log(f"[kernel] brox_scale {h}x{w} plan: {_plan_line(brox_fused, _plan(h, w), h, w)}")
+        k, r, max_d, plain_ms = _compare_brox(
+            f"main path {h}x{w} B={b} max_disp {kw['max_disp']:g}", args, kw,
+            same_counts=True)
         worst = max(worst, max_d)
         ms = cuda_ms(lambda: brox_scale(*args, **kw), 3)
         t_bytes, t_ops = brox_bound_ms(k[2], h, w)
@@ -809,12 +842,46 @@ def phase_brox_kernels(video: Path, card: str) -> list:
                             (ms, plain_ms, t_bytes, t_ops)):
             tot[key] += val
         log(f"[kernel] brox_scale {h}x{w} B={b}: slab totals warps {c[0]:g}, inner steps "
-            f"{c[1]:g}, sweeps {c[2]:g}; kernel {ms:.6g} ms, plain {plain_ms:.6g} ms, "
-            f"bound {max(t_bytes, t_ops):.6g} ms (bytes {t_bytes:.6g}, operations "
-            f"{t_ops:.6g}); {card}")
+            f"{c[1]:g}, sweeps {c[2]:g} (most a pair {int(k[2][:, 2].max())}); kernel "
+            f"{ms:.6g} ms, plain {plain_ms:.6g} ms, bound {max(t_bytes, t_ops):.6g} ms "
+            f"(bytes {t_bytes:.6g}, operations {t_ops:.6g}); {card}")
+        # the plans _plan did not take, on the same inputs
+        for n, placement in BROX_OTHER_PLANS.get((h, w), []):
+            other = _make_plan(h, w, n, placement)
+            ko = _launch(*args, **kw, plan=other)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(ko, r)):
+                raise SystemExit(f"brox_scale with {other} disagrees at {h}x{w}")
+            o_ms = cuda_ms(lambda: _launch(*args, **kw, plan=other), 3)
+            log(f"[kernel] brox_scale {h}x{w} B={b} not taken: "
+                f"{_plan_line(brox_fused, other, h, w)}: {o_ms:.6g} ms, bit-equal with "
+                f"equal counts; {card}")
+        if (h, w) in BROX_OTHER_PLANS:
+            # one Jacobi sweep and its barrier: the slope of the time over
+            # the sweep count, at one warp of one inner step and no stop
+            one = dict(kw, outer_iterations=1, inner_iterations=1, stop_eps=0.0)
+            t_lo, t_hi = (cuda_ms(lambda: brox_scale(*args, **dict(one, solver_iterations=s)), 3)
+                          for s in (10, 210))
+            band = -(-h // _plan(h, w).n) * w
+            log(f"[kernel] brox_scale {h}x{w} B={b}: 200 more sweeps of every pair take "
+                f"{t_hi - t_lo:.6g} ms, {(t_hi - t_lo) / 200 * 1e3:.6g} us a sweep of the slab "
+                f"(bands of up to {band} px); one warp and one inner step of 10 sweeps "
+                f"{t_lo:.6g} ms; {card}")
     log(f"[kernel] brox_scale one slab, {len(calls)} levels: kernel {tot['ms']:.6g} ms, "
         f"plain {tot['plain_ms']:.6g} ms, bound {max(tot['t_bytes'], tot['t_ops']):.6g} ms; "
         f"{card}")
+    # the slab's whole solve (presmoothing, pyramids, upsamples and the 13
+    # launches) beside its kernels, and how long the host takes to enqueue it
+    I0d = torch.from_numpy(I0u).to(dev, torch.float32) * scale
+    I1d = torch.from_numpy(I1u).to(dev, torch.float32) * scale
+    flow_ms = cuda_ms(lambda: bx.brox_flow(I0d, I1d, p), 3)
+    t0 = time.perf_counter()
+    bx.brox_flow(I0d, I1d, p)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"[kernel] brox_flow one slab: {flow_ms:.6g} ms on the card, of which the "
+        f"{len(calls)} levels' kernels timed alone {tot['ms']:.6g} ms; one call returns "
+        f"to the host after {host_ms:.6g} ms; {card}")
 
     rng = np.random.default_rng(6)
     reduced = dict(inner_iterations=3, outer_iterations=4, solver_iterations=4)
@@ -825,6 +892,8 @@ def phase_brox_kernels(video: Path, card: str) -> list:
         ("clamp 64x80 B=4 (u0 beyond max_disp)", 4, 64, 80, dict(max_disp=3.0), 7.5),
         ("stop_eps=0 40x56 B=2, reduced budget", 2, 40, 56,
          dict(reduced, max_disp=8.0, stop_eps=0.0), 0.0),
+        # no -ns: no cluster holds the state, every plane in device memory
+        ("360x480 B=2, reduced budget", 2, 360, 480, dict(reduced, max_disp=40.0), 0.0),
     ]
     for name, b, h, w, over, u0 in extra:
         I0n, I1n = textured_pairs(b, h, w, rng.uniform(-2.0, 2.0, (b, 2)),
@@ -834,8 +903,11 @@ def phase_brox_kernels(video: Path, card: str) -> list:
         u = torch.full((b, h, w), u0, dtype=torch.float32, device=dev)
         args = (I0, I1, u, -u)
         kw = dict(calls[0][1], **over)
-        k, max_d, _ = _compare_brox(name, args, kw)
+        log(f"[kernel] brox_scale {name} plan: {_plan_line(brox_fused, _plan(h, w), h, w)}")
+        k, _, max_d, plain_ms = _compare_brox(name, args, kw)
         worst = max(worst, max_d)
+        ms = cuda_ms(lambda: brox_scale(*args, **kw), 3)
+        log(f"[kernel] brox_scale {name}: kernel {ms:.6g} ms, plain {plain_ms:.6g} ms; {card}")
         if kw["stop_eps"] == 0:
             want = [kw["outer_iterations"], kw["outer_iterations"] * kw["inner_iterations"],
                     kw["outer_iterations"] * kw["inner_iterations"] * kw["solver_iterations"]]

@@ -38,13 +38,20 @@ the untiled answer at every geometry and ports no tiling.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from denseflow_tpu_torch.kernels._cluster import (
+    MAX_CTAS,
+    ONE_WAVE_CTAS,
+    Plan,
+    active_clusters,
+    even_starts,
+    fits,
+)
 from denseflow_tpu_torch.kernels.plane_ops import resample_cubic
 
 _GRAD_EPS = 1.1920929e-07  # numeric_limits<float>::epsilon(), OpenCV's guard
@@ -178,69 +185,40 @@ def _check_args(planes, check_every: int) -> None:
 _PLACEMENTS = ("device", "shared")
 _LOOP_PLANES = 9  # u1, u2, p11, p12, p21, p22, I1wx, I1wy, rho_c
 _HALO_ROWS = 4  # p12, p22 of the row above a band; u1, u2 of the row below
-_SMEM_LIMIT = 232_448  # shared memory one CTA may use on sm_90 (227 KB)
-_SMEM_STATIC = 256  # at least the kernel's own __shared__ arrays (144 B)
-_MAX_CTAS = 16  # a non-portable cluster
-# The widest cluster of which a main-path slab's 16 pairs fit on an H100 at
-# once: 17 clusters of 6 one-CTA-per-SM blocks do, of 7 or 8 only 15, of
-# 12 to 16 only 7 (cudaOccupancyMaxActiveClusters; PERF.md).
-_ONE_WAVE_CTAS = 6
 _PX_PER_CTA = 2048  # fewer CTAs below about two pixels a thread
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """How the kernel lays one pair out: `n` CTAs, one thread-block
-    cluster; CTA k owns rows starts[k] .. starts[k+1]-1; `placement` is
-    where the state lives; `smem_bytes` is the dynamic shared memory of a
-    CTA, `scratch_planes` the (h, w) planes of device memory a pair needs
-    besides the outputs."""
-
-    n: int
-    starts: Tuple[int, ...]
-    placement: str
-    smem_bytes: int
-    scratch_planes: int
 
 
 def _make_plan(h: int, w: int, n: int, placement: str) -> Plan:
     """The plan of n bands, as even as rows allow, with `placement`."""
     if placement not in _PLACEMENTS:
         raise ValueError(f"tvl1_scale: no placement {placement!r}")
-    if not 1 <= n <= min(_MAX_CTAS, h):
+    if not 1 <= n <= min(MAX_CTAS, h):
         raise ValueError(f"tvl1_scale: {n} bands of {h} rows")
-    q, extra = divmod(h, n)
-    starts = [0]
-    for k in range(n):
-        starts.append(starts[-1] + q + (k < extra))
+    starts = even_starts(h, n)
     if placement == "shared":
-        rows = q + (extra > 0)
+        rows = -(-h // n)
         smem = 4 * (_LOOP_PLANES * rows * w + _HALO_ROWS * w)
         scratch = 3  # t1, t1x, t1y
     else:
         smem = 0
         scratch = 3 + _LOOP_PLANES - 2  # u1, u2 are the outputs
-    return Plan(n, tuple(starts), placement, smem, scratch)
-
-
-def _fits(plan: Plan) -> bool:
-    return plan.smem_bytes + _SMEM_STATIC <= _SMEM_LIMIT
+    return Plan(n, starts, placement, smem, scratch)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(h: int, w: int) -> Plan:
     """The kernel's plan for an (h, w) scale, from (h, w) alone.
 
-    The state in shared memory in a cluster of up to _ONE_WAVE_CTAS CTAs of
+    The state in shared memory in a cluster of up to ONE_WAVE_CTAS CTAs of
     about _PX_PER_CTA pixels or more; where that cluster cannot hold it,
     in one of 16 (more waves, but the smallest bands); where 16 cannot
     either, every plane in device memory."""
-    n = min(_ONE_WAVE_CTAS, h, max(1, -(-h * w // _PX_PER_CTA)))
+    n = min(ONE_WAVE_CTAS, h, max(1, -(-h * w // _PX_PER_CTA)))
     for plan in (_make_plan(h, w, n, "shared"),
-                 _make_plan(h, w, min(_MAX_CTAS, h), "shared")):
-        if _fits(plan):
+                 _make_plan(h, w, min(MAX_CTAS, h), "shared")):
+        if fits(plan):
             return plan
-    return _make_plan(h, w, min(_MAX_CTAS, h), "device")
+    return _make_plan(h, w, min(MAX_CTAS, h), "device")
 
 
 def _c_plan(plan: Plan, h: int, w: int) -> tuple:
@@ -268,30 +246,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-_active: dict = {}
-
-
 def max_active_clusters(plan: Plan, h: int, w: int, device: torch.device) -> int:
     """How many clusters of `plan` fit on `device` at once
-    (cudaOccupancyMaxActiveClusters). Raises if the kernel does not take
-    the plan, or if not one cluster of it fits: no smaller plan is run in
-    its place."""
-    key = (torch.cuda.current_device() if device.index is None else device.index,
-           h, w, plan)
-    if key not in _active:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(key[0]):
-            rc = _lib().tvl1_scale_max_active_clusters(
-                h, w, *_c_plan(plan, h, w), ctypes.byref(out))
-        if rc == -1:
-            raise ValueError(f"tvl1_scale: the kernel does not take {plan} at {h}x{w}")
-        if rc != 0:
-            raise RuntimeError(f"tvl1_scale: occupancy query failed for {plan} "
-                               f"at {h}x{w}: CUDA error {rc}")
-        if out.value < 1:
-            raise RuntimeError(f"tvl1_scale: the card cannot schedule {plan} at {h}x{w}")
-        _active[key] = out.value
-    return _active[key]
+    (`_cluster.active_clusters`, which raises for a plan the card cannot
+    schedule)."""
+    return active_clusters("tvl1_scale", plan, h, w, device, lambda out: (
+        _lib().tvl1_scale_max_active_clusters(h, w, *_c_plan(plan, h, w), out)))
 
 
 def _launch(I0, I1, I1x, I1y, u1, u2, l_t, theta, taut, epsilon,

@@ -9,6 +9,9 @@ versions use them.
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -28,7 +31,18 @@ def _pad1d(x: torch.Tensor, pad: int, dim: int, border: str) -> torch.Tensor:
     (gfedcb|abcdefgh|gfedcb) or 'replicate' (aaaaaa|abcdefgh|hhhhhh)."""
     if pad == 0:
         return x
-    n = x.shape[dim]
+    idx_lo, idx_hi = _pad_index(x.shape[dim], pad, border, x.device)
+    lo = torch.index_select(x, dim, idx_lo)
+    hi = torch.index_select(x, dim, idx_hi)
+    return torch.cat([lo, x, hi], dim=dim)
+
+
+@functools.lru_cache(maxsize=None)
+def _pad_index(n: int, pad: int, border: str,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The source indices of the `pad` elements before and after an axis
+    of n, on `device`. Built once per geometry and device: a copy to the
+    card made at every call would wait for all the work queued before it."""
     if border == "reflect101":
         idx_lo = np.arange(pad, 0, -1) % n
         idx_hi = (n - 2 - np.arange(pad)) % n
@@ -37,9 +51,7 @@ def _pad1d(x: torch.Tensor, pad: int, dim: int, border: str) -> torch.Tensor:
         idx_hi = np.full(pad, n - 1, dtype=np.int64)
     else:
         raise ValueError(border)
-    lo = torch.index_select(x, dim, torch.from_numpy(idx_lo).to(x.device))
-    hi = torch.index_select(x, dim, torch.from_numpy(idx_hi).to(x.device))
-    return torch.cat([lo, x, hi], dim=dim)
+    return torch.from_numpy(idx_lo).to(device), torch.from_numpy(idx_hi).to(device)
 
 
 def conv1d(

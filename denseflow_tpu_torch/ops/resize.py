@@ -11,15 +11,19 @@ two-tap form on purpose (`denseflow_tpu/ops/pyramid.py:44-50`).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 
+@functools.lru_cache(maxsize=None)
 def _axis_coords(dst_n: int, src_n: int, device: torch.device):
     """(i0, i1, frac) for one axis: clipped integer neighbours and the blend
     weight under cv2's rule src = (dst + 0.5) * scale - 0.5, where the
-    *coordinate* is clamped (x < 0 collapses to pixel 0)."""
+    *coordinate* is clamped (x < 0 collapses to pixel 0). Computed on the
+    CPU once per geometry and device: a copy to the card made at every call
+    would wait for all the work queued before it."""
     scale = torch.tensor(src_n / dst_n, dtype=torch.float32)
     x = (torch.arange(dst_n, dtype=torch.float32) + 0.5) * scale - 0.5
     i0 = torch.floor(x)

@@ -15,7 +15,13 @@ Tolerances:
   1/sqrt, move results by ulps (measured mean <= 1.3e-6 px, max 9.1e-6 px
   over the cases below, the clamp case the largest), and a stop that lands
   on the other side of its threshold moves a pair by one step.
+
+The CUDA kernel's plan (`_plan`: CTAs a pair, row bands, placement, shared
+memory) is plain Python and is tested here too; the kernel
+itself runs only on a card (`chip_smoke.py` phase 10).
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +34,7 @@ from denseflow_tpu.algorithms.brox import _dy as j_dy
 from denseflow_tpu.kernels.brox_fused import _D5 as J_D5
 from denseflow_tpu.kernels.brox_fused import brox_scale_fused
 from denseflow_tpu.kernels.common import cubic_kernel, make_plane_ops
+from denseflow_tpu_torch.kernels import brox_fused as _bf
 from denseflow_tpu_torch.kernels.brox_fused import (
     D5,
     brox_scale,
@@ -39,6 +46,8 @@ from denseflow_tpu_torch.kernels.plane_ops import (
     resample_cubic,
     shift,
 )
+from denseflow_tpu_torch.kernels._cluster import SMEM_STATIC
+from denseflow_tpu_torch.ops.pyramid import pyramid_shapes
 
 torch.set_num_threads(1)
 
@@ -211,3 +220,90 @@ def test_level_wrapper_takes_plain_path_on_cpu_and_checks_args():
     u0, v0, c = brox_scale(*args, **dict(FAST, outer_iterations=0))
     assert torch.equal(u0, args[2]) and torch.equal(v0, args[3])
     assert c.tolist() == [[0, 0, 0]] * 2
+
+
+# ---- the kernel's plan (kernels/brox_fused.py::_plan), on the CPU ----
+
+MAIN_PATH = pyramid_shapes(256, 341, 0.8, 100, 16)
+PLAN_GEOMETRIES = sorted(set(
+    MAIN_PATH
+    + pyramid_shapes(360, 480, 0.8, 100, 16)[:3]
+    + [(1080, 1920), (37, 53), (64, 80), (40, 56), (16, 16), (3, 400)]
+))
+SMEM_PER_CTA = 232_448  # bytes of shared memory a CTA may use on sm_90
+
+
+def test_main_path_levels_are_the_thirteen_of_256x341():
+    assert MAIN_PATH == [(256, 341), (205, 273), (164, 218), (131, 175), (105, 140),
+                         (84, 112), (67, 89), (54, 72), (43, 57), (34, 46), (27, 37),
+                         (22, 29), (18, 23)]
+
+
+@pytest.mark.parametrize("hw", PLAN_GEOMETRIES, ids=[f"{h}x{w}" for h, w in PLAN_GEOMETRIES])
+def test_plan_bands_cover_rows_and_fit(hw):
+    h, w = hw
+    plan = _bf._plan(h, w)
+    assert 1 <= plan.n <= 16
+    assert len(plan.starts) == plan.n + 1
+    assert plan.starts[0] == 0 and plan.starts[-1] == h
+    rows = [b - a for a, b in zip(plan.starts, plan.starts[1:])]
+    assert max(rows) - min(rows) <= 1
+    assert plan.smem_bytes + SMEM_STATIC <= SMEM_PER_CTA
+    haloed = (max(rows) + 4) * w  # a band and two halo rows each side
+    if plan.placement == "device":
+        assert min(rows) >= 1  # every row once
+        assert plan.smem_bytes == 0 and plan.scratch_planes == 27
+        return
+    # a band in shared memory holds the two rows its neighbours read
+    assert min(rows) >= (2 if plan.n > 1 else 1)
+    if plan.placement == "shared":
+        # u, v, two (du, dv) buffers and psi_s with halo rows, five planes without
+        assert plan.smem_bytes == 4 * (7 * haloed + 5 * max(rows) * w)
+        assert plan.scratch_planes == 17
+    else:
+        assert plan.placement == "split"
+        assert plan.smem_bytes == 4 * 6 * haloed and plan.scratch_planes == 23
+
+
+@pytest.mark.parametrize("hw", PLAN_GEOMETRIES, ids=[f"{h}x{w}" for h, w in PLAN_GEOMETRIES])
+def test_plan_depends_on_h_w_alone(hw):
+    # B never reaches the plan: a pair's bytes cannot depend on its batch
+    assert list(inspect.signature(_bf._plan).parameters) == ["h", "w"]
+    first = _bf._plan(*hw)
+    _bf._plan.cache_clear()
+    assert _bf._plan(*hw) == first
+
+
+# (level, CTAs a pair, placement): one CTA under 900 px; one wave of
+# 6-CTA clusters from 27x37 to 164x218; 16 CTAs where 6 cannot hold u, v
+# and (du, dv); device memory where no cluster holds them
+PLANS = [((18, 23), 1, "shared"), ((22, 29), 1, "shared")] + [
+    (hw, 6, "shared") for hw in [(27, 37), (34, 46), (43, 57), (54, 72), (67, 89),
+                                 (84, 112), (105, 140), (131, 175)]
+] + [((164, 218), 6, "split"), ((205, 273), 16, "shared"), ((256, 341), 16, "split"),
+     ((360, 480), 6, "device"), ((1080, 1920), 6, "device")]
+
+
+@pytest.mark.parametrize("hw,n,placement", PLANS, ids=[f"{h}x{w}" for (h, w), _, _ in PLANS])
+def test_plan_at_each_level(hw, n, placement):
+    plan = _bf._plan(*hw)
+    assert (plan.n, plan.placement) == (n, placement)
+
+
+def test_plans_cover_the_main_path():
+    assert sorted(hw for hw, _, _ in PLANS if hw in MAIN_PATH) == sorted(MAIN_PATH)
+
+
+@pytest.mark.parametrize("h,n,placement", [
+    (37, 0, "shared"),    # no CTA
+    (37, 17, "shared"),   # over the largest cluster
+    (37, 17, "device"),
+    (12, 13, "device"),   # more bands than rows
+    (12, 13, "shared"),
+    (12, 7, "shared"),    # one-row bands: shorter than the two halo rows
+    (12, 7, "split"),
+    (37, 4, "tiled"),     # no such placement
+])
+def test_make_plan_refuses_what_the_kernel_does_not_run(h, n, placement):
+    with pytest.raises(ValueError):
+        _bf._make_plan(h, 53, n, placement)

@@ -32,6 +32,7 @@ def test_every_module_imports_without_jax():
     assert "denseflow_tpu_torch.kernels.farneback_fused" in mods
     assert "denseflow_tpu_torch.algorithms.farneback" in mods
     assert "denseflow_tpu_torch.kernels.brox_fused" in mods
+    assert "denseflow_tpu_torch.kernels._cluster" in mods
     assert "denseflow_tpu_torch.algorithms.brox" in mods
     code = (
         "import importlib, sys\n"

@@ -13,6 +13,7 @@ from denseflow_tpu.ops import pyramid as jp
 from denseflow_tpu.ops import resize as jr
 from denseflow_tpu_torch import quantize as tq
 from denseflow_tpu_torch.ops import derivatives as td
+from denseflow_tpu_torch.ops import filters as tf
 from denseflow_tpu_torch.ops import pyramid as tp
 from denseflow_tpu_torch.ops import resize as tr
 
@@ -63,6 +64,22 @@ def test_resize_of_flow_scaled_matches():
     u = _img((3, 105, 140), seed=1, lo=-9, hi=9)
     _same(tr.resize_bilinear(torch.from_numpy(u), (131, 175)) * (1.0 / 0.8),
           jr.resize_bilinear(jnp.asarray(u), (131, 175)) * (1.0 / 0.8))
+
+
+@pytest.mark.parametrize("helper,args", [
+    (tr._axis_coords, (131, 105)),
+    (tf._pad_index, (37, 2, "reflect101")),
+    (tf._pad_index, (37, 5, "replicate")),
+])
+def test_index_tensors_are_built_once_per_geometry(helper, args):
+    """The resize and border-pad index tensors are built once per geometry
+    and device: a fresh host-to-card copy at every call waits for all the
+    work queued before it, which held the solvers' host thread to the card."""
+    dev = torch.device("cpu")
+    first = helper(*args, dev)
+    again = helper(*args, dev)
+    assert all(a is b for a, b in zip(first, again))
+    assert all(a.device == dev for a in first)
 
 
 @pytest.mark.parametrize("shape", [(2, 256, 341), (1, 37, 53), (3, 64, 80)])

@@ -24,6 +24,7 @@ import torch
 from denseflow_tpu.kernels.tvl1_fused import tvl1_scale_fused
 from denseflow_tpu.ops.derivatives import centered_gradient
 from denseflow_tpu_torch.kernels import tvl1_fused as _tf
+from denseflow_tpu_torch.kernels._cluster import SMEM_STATIC
 from denseflow_tpu_torch.kernels.tvl1_fused import tvl1_scale, tvl1_scale_reference
 from denseflow_tpu_torch.ops.pyramid import pyramid_shapes
 
@@ -147,7 +148,7 @@ def test_plan_bands_cover_rows_and_fit(hw):
     rows = [b - a for a, b in zip(plan.starts, plan.starts[1:])]
     assert min(rows) >= 1  # every row once, each band at least one row
     assert max(rows) - min(rows) <= 1
-    assert plan.smem_bytes + _tf._SMEM_STATIC <= SMEM_PER_CTA
+    assert plan.smem_bytes + SMEM_STATIC <= SMEM_PER_CTA
     if plan.placement == "shared":
         # the nine loop planes of the longest band and the four halo rows
         assert plan.smem_bytes == 4 * (9 * max(rows) * w + 4 * w)
