@@ -11,8 +11,9 @@ fused path. Per level, coarse to fine:
   (`_level_matrices`) applied with `torch.bmm` in float64 and rounded once
   to float32, so no TF32 or reduced-precision setting of the caller's can
   reach them (JAX runs them at Precision.HIGHEST);
-* the polynomial expansion of both images in one `poly_expand` call (the
-  CUDA kernel on the card, its plain version on the CPU);
+* the polynomial expansion of both images at every level in one
+  `poly_expand` call (one CUDA launch on the card, its plain version on
+  the CPU), before the first level runs;
 * one `farneback_level` call for all iterations of every pair;
 * between levels, the flow upsampled bilinearly times 1/pyrScale.
 """
@@ -171,11 +172,11 @@ def _level_operators(h: int, w: int, lh: int, lw: int, ksize: int,
 
 def _level_image(I: torch.Tensor, lh: int, lw: int, ksize: int,
                  sigma: float) -> torch.Tensor:
-    """blur+resize of (N, H, W) float32 via the dense per-axis operators.
-    The products run in float64, which no TF32 setting touches, and are
-    rounded once to float32. The operators are expanded over the batch and
-    applied with `bmm`, so each image's product has the same shape
-    whatever N is."""
+    """blur+resize of (N, H, W) float32 or float64 via the dense per-axis
+    operators. The products run in float64, which no TF32 setting
+    touches, and are rounded once to float32. The operators are expanded
+    over the batch and applied with `bmm`, so each image's product has the
+    same shape whatever N is."""
     n, h, w = I.shape
     Mv, MhT = _level_operators(h, w, lh, lw, ksize, sigma, I.device)
     hi = torch.bmm(Mv.expand(n, lh, h), I.to(torch.float64))
@@ -185,17 +186,21 @@ def _level_image(I: torch.Tensor, lh: int, lw: int, ksize: int,
 def farneback_flow(I0: torch.Tensor, I1: torch.Tensor, p: FarnebackParams) -> torch.Tensor:
     """I0, I1: (B, H, W) float32 in 0..255 on one device -> flow (B, H, W, 2)."""
     b, h, w = I0.shape
-    both = torch.cat([I0, I1])
+    # both images, in float64 once for every level's products
+    both = torch.cat([I0, I1]).to(torch.float64)
+    geometry = _level_geometry(h, w, p)
+    # the level images depend only on the frames: every level of both
+    # images through one poly_expand launch
+    Rs = poly_expand([_level_image(both, lh, lw, ksize, sigma)
+                      for _, lh, lw, ksize, sigma in geometry], p.poly_n, p.poly_sigma)
     u = v = None
-    for scale, lh, lw, ksize, sigma in _level_geometry(h, w, p):
+    for (scale, lh, lw, _, _), R in zip(geometry, Rs):
         if u is None:
             u = torch.zeros((b, lh, lw), dtype=torch.float32, device=I0.device)
             v = torch.zeros_like(u)
         else:
-            u = resize_bilinear(u, (lh, lw)) * (1.0 / p.pyr_scale)
-            v = resize_bilinear(v, (lh, lw)) * (1.0 / p.pyr_scale)
-        # both images through one level-image product and one poly_expand
-        R = poly_expand(_level_image(both, lh, lw, ksize, sigma), p.poly_n, p.poly_sigma)
+            # u and v through one resize
+            u, v = resize_bilinear(torch.stack([u, v]), (lh, lw)) * (1.0 / p.pyr_scale)
         d_lvl = max(4, int(round(p.max_disp * scale)))
         u, v, _ = farneback_level(
             R[:b], R[b:], u, v, win_size=int(p.win_size),

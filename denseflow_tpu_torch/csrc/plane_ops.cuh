@@ -129,67 +129,63 @@ __device__ __forceinline__ CubicTaps cubic_taps(int coord, float disp, int n,
   return t;
 }
 
-// Pairwise (cascaded doubling) sum of the zero-padded line values
-// z(start) .. z(start + size - 1), size a power of two, where z(k) = get(k)
-// for 0 <= k < n and 0 elsewhere. The stack combines equal-sized partial sums
-// left + right as they complete, which is the association of the Pallas
-// cascade: sums[2m][k] = sums[m][k] + sums[m][k + m].
-template <class Get>
-__device__ __forceinline__ float tree_sum(const Get& get, int start, int size,
-                                          int n) {
-  float val[16];
-  int len[16];
-  int top = 0;
-  for (int i = 0; i < size; ++i) {
-    const int k = start + i;
-    float v = (k >= 0 && k < n) ? get(k) : 0.0f;
-    int s = 1;
-    while (top > 0 && len[top - 1] == s) {
-      v = val[top - 1] + v;
-      s *= 2;
-      --top;
-    }
-    val[top] = v;
-    len[top] = s;
-    ++top;
+// The balanced pairwise sum of z(kOff) .. z(kOff + kM - 1), kM a power of
+// two: the association of the Pallas cascade,
+// sums[2m][k] = sums[m][k] + sums[m][k + m].
+template <int kOff, int kM, class Z>
+__device__ __forceinline__ float tree_sum(const Z& z) {
+  if constexpr (kM == 1) {
+    return z(kOff);
+  } else {
+    return tree_sum<kOff, kM / 2>(z) + tree_sum<kOff + kM / 2, kM / 2>(z);
   }
-  return val[0];
 }
 
-// Sum of get(clamp(y + k, 0, n-1)) for k in [-(win/2), win/2], win odd (the
-// wrappers refuse even windows), in the float order of the Pallas box_sum
-// with zero_pad=True. For win >= 4: the zero-padded window summed in
-// power-of-two blocks, largest first, then the clamped taps added back as
-// count * edge value. For win < 4: the taps in ascending order.
-template <class Get>
-__device__ __forceinline__ float box_sum(const Get& get, int y, int n,
-                                         int win) {
-  const int ctr = win / 2;
-  if (win < 4) {
+// z(0) .. z(kRem - 1) from offset kOff on, in power-of-two blocks of kM and
+// smaller, each block added to `total` (the first one starts it).
+template <int kRem, int kOff, int kM, class Z>
+__device__ __forceinline__ float block_sums(const Z& z, float total) {
+  if constexpr (kM == 0) {
+    return total;
+  } else if constexpr (kRem >= kM) {
+    const float part = tree_sum<kOff, kM>(z);
+    return block_sums<kRem - kM, kOff + kM, kM / 2>(
+        z, kOff == 0 ? part : total + part);
+  } else {
+    return block_sums<kRem, kOff, kM / 2>(z, total);
+  }
+}
+
+__host__ __device__ constexpr int top_pow2(int n) {
+  return n < 2 ? 1 : 2 * top_pow2(n / 2);
+}
+
+// Sum of the kWin taps at clamp(y + k, 0, n-1), k in [-(kWin/2), kWin/2],
+// kWin odd, in the float order of the Pallas box_sum with zero_pad=True.
+// z(i) is the zero-padded value at y - kWin/2 + i (0 outside [0, n)), lo
+// and hi the line's values at 0 and n-1. For kWin >= 4: the zero-padded
+// window summed in power-of-two blocks, largest first, then the clamped
+// taps added back as count * edge value. For kWin < 4: the clamped taps in
+// ascending order. The window is a template parameter, so every index
+// into z is a constant and a window held in registers stays there.
+template <int kWin, class Z>
+__device__ __forceinline__ float box_sum(const Z& z, int y, int n, float lo,
+                                         float hi) {
+  constexpr int ctr = kWin / 2;
+  if constexpr (kWin < 4) {
     float acc = 0.0f;
-    for (int k = -ctr; k <= ctr; ++k) {
-      acc = acc + get(min(max(y + k, 0), n - 1));
+#pragma unroll
+    for (int i = 0; i < kWin; ++i) {
+      const int t = y - ctr + i;
+      acc = acc + (t < 0 ? lo : (t > n - 1 ? hi : z(i)));
     }
     return acc;
+  } else {
+    const float total = block_sums<kWin, 0, top_pow2(kWin)>(z, 0.0f);
+    const float cnt_lo = (float)max(0, ctr - y);
+    const float cnt_hi = (float)max(0, y + ctr - (n - 1));
+    return (total + cnt_lo * lo) + cnt_hi * hi;
   }
-  int m = 1;
-  while (m * 2 <= win) m *= 2;
-  float total = 0.0f;
-  bool first = true;
-  int off = 0, rem = win;
-  while (rem) {
-    if (rem >= m) {
-      const float part = tree_sum(get, y - ctr + off, m, n);
-      total = first ? part : total + part;
-      first = false;
-      off += m;
-      rem -= m;
-    }
-    m >>= 1;
-  }
-  const float cnt_lo = (float)max(0, ctr - y);
-  const float cnt_hi = (float)max(0, y + ctr - (n - 1));
-  return (total + cnt_lo * get(0)) + cnt_hi * get(n - 1);
 }
 
 // OpenCV's separable border attenuation at (r, c) of an (h, w) level,

@@ -2,8 +2,8 @@
 thread-block cluster per frame pair, the plan record, and the occupancy
 query.
 
-`csrc/tvl1_scale.cu` and `csrc/brox_scale.cu` run a cluster of n CTAs per
-pair, CTA k owning a band of full-width rows. Each kernel's module picks its
+`csrc/tvl1_scale.cu`, `csrc/farneback_level.cu` and `csrc/brox_scale.cu`
+run a cluster of n CTAs per pair, CTA k owning a band of full-width rows. Each kernel's module picks its
 plan from (h, w) alone (`_plan`) under the limits here; how many clusters
 of a plan fit on the card at once is asked of the card itself, and a plan
 it cannot schedule raises instead of running a smaller one.
@@ -18,7 +18,8 @@ from typing import Callable, Tuple
 import torch
 
 SMEM_LIMIT = 232_448  # shared memory one CTA may use on sm_90 (227 KB)
-SMEM_STATIC = 256  # at least a kernel's own __shared__ arrays (TVL1 144 B, Brox 256)
+# at least a kernel's own __shared__ arrays (TVL1 144 B, Farneback 64, Brox 256)
+SMEM_STATIC = 256
 MAX_CTAS = 16  # a non-portable cluster
 # The widest cluster of which a main-path slab's 16 pairs fit on an H100 at
 # once: 17 clusters of 6 one-CTA-per-SM blocks do, of 7 or 8 only 15, of

@@ -1,34 +1,60 @@
 """Farneback's two kernels: the hand-written CUDA kernels
-(`csrc/farneback_polyexp.cu`, `csrc/farneback_level.cu`) and their plain
-PyTorch versions.
+(`csrc/farneback_polyexp.cu`, `csrc/farneback_level.cu`), the level
+kernel's plan, and their plain PyTorch versions.
 
 * `poly_expand` replaces the JAX package's Pallas kernel
   `denseflow_tpu/kernels/farneback_fused.py::poly_expand_fused`: the
   quadratic fit of each pixel's neighbourhood, (N, H, W) -> channel-first
-  (N, 5, H, W) = (bx, by, cxx, cyy, cxy). The JAX package falls back to its
-  XLA `poly_expand` above a padded plane of 272x384 (`polyexp_fused_fits`);
-  this port has one code path for every size and ports no fallback.
+  (N, 5, H, W) = (bx, by, cxx, cyy, cxy), for a list of pyramid levels in
+  one launch. The JAX package falls back to its XLA `poly_expand` above a
+  padded plane of 272x384 (`polyexp_fused_fits`); this port has one code
+  path for every size and ports no fallback.
 * `farneback_level` replaces `farneback_level_fused` (with
   `farneback_level_fused_tiled`): one pyramid level's iterations of warp,
-  normal equations, box blur and 2x2 solve for each pair. The JAX tiler
-  exists only to fit VMEM; this port computes the untiled answer at every
-  geometry and ports no tiling.
+  normal equations, box blur and 2x2 solve for each pair, in one launch.
+  The JAX tiler exists only to fit VMEM; this port computes the untiled
+  answer at every geometry and ports no tiling.
+
+The level kernel runs a thread-block cluster of n CTAs per pair; CTA k owns
+a band of full-width rows and keeps the five normal-equation planes of its
+band with six halo rows each side, which its neighbours write over
+distributed shared memory. `_plan(h, w)` picks n, the bands and where the
+state lives, from (h, w) alone, so a pair's bytes never depend on its
+batch-mates or on B:
+
+- "shared": u, v and the haloed planes in the CTAs' shared memory: one CTA
+  under 1,000 pixels (8x11, 16x21), else up to 6 (a 16-pair slab in one
+  wave), from 32x43 to 128x170;
+- "split": the haloed planes in shared memory, u and v in the outputs:
+  256x341 in 16 CTAs;
+- "device": every plane in band-owned device memory, for geometries that
+  no cluster holds (360x480, 1080x1920 without `-ns`).
+
+PERF.md has the measured times per level, beside the plans not taken.
 
 Both plain versions compute what the Pallas kernels compute, in their
 order of float operations (kernels/plane_ops.py), not what the JAX XLA
 path does. On a CUDA tensor a wrapper launches its kernel and counts the
-call in `.launches`; on a CPU tensor it runs the plain version.
+launch in `.launches`; on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from denseflow_tpu_torch.kernels._cluster import (
+    MAX_CTAS,
+    ONE_WAVE_CTAS,
+    Plan,
+    active_clusters,
+    even_starts,
+    fits,
+)
 from denseflow_tpu_torch.kernels.plane_ops import (
     border_scale,
     box_sum,
@@ -66,6 +92,8 @@ def _check(name: str, tensors, shapes) -> None:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(_I)
+_PLAN_ARGS = [_I, _I, _IP, _I, _I]
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,10 +101,11 @@ def _polyexp_lib() -> ctypes.CDLL:
     from denseflow_tpu_torch.kernels import _build
 
     lib = _build.load("farneback_polyexp")
-    lib.farneback_polyexp_launch.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P]
+    lib.farneback_polyexp_launch.argtypes = [_P, _P, _IP, _IP, _IP, _I, _I, _P, _P]
     lib.farneback_polyexp_launch.restype = _I
-    lib.farneback_polyexp_max_n.argtypes = []
-    lib.farneback_polyexp_max_n.restype = _I
+    for fn in (lib.farneback_polyexp_max_n, lib.farneback_polyexp_max_levels):
+        fn.argtypes = []
+        fn.restype = _I
     return lib
 
 
@@ -85,12 +114,11 @@ def _level_lib() -> ctypes.CDLL:
     from denseflow_tpu_torch.kernels import _build
 
     lib = _build.load("farneback_level")
-    lib.farneback_level_launch.argtypes = [_P] * 10 + [_I] * 5 + [_F] * 3 + [_P]
+    lib.farneback_level_launch.argtypes = (
+        [_P] * 8 + [_I] * 5 + [_F] * 3 + _PLAN_ARGS + [_P])
     lib.farneback_level_launch.restype = _I
-    lib.farneback_level_scratch_planes.argtypes = []
-    lib.farneback_level_scratch_planes.restype = _I
-    lib.farneback_level_partials.argtypes = [_I, _I]
-    lib.farneback_level_partials.restype = _I
+    lib.farneback_level_max_active_clusters.argtypes = [_I] * 3 + _PLAN_ARGS + [_IP]
+    lib.farneback_level_max_active_clusters.restype = _I
     return lib
 
 
@@ -132,32 +160,52 @@ def poly_expand_reference(img: torch.Tensor, n: int, sigma: float) -> torch.Tens
     ], dim=1)
 
 
-def poly_expand(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
-    """(N, H, W) float32 -> (N, 5, H, W) polynomial-expansion coefficients
-    (bx, by, cxx, cyy, cxy), channel-first for `farneback_level`. On a CUDA
-    tensor this launches `csrc/farneback_polyexp.cu` (counted in
-    `poly_expand.launches`); on the CPU it runs `poly_expand_reference`."""
-    if img.dim() != 3:
-        raise ValueError(f"poly_expand takes (N, H, W), got {tuple(img.shape)}")
-    _check("poly_expand", [img], [tuple(img.shape)])
-    if img.device.type == "cpu":
-        return poly_expand_reference(img, n, sigma)
+def poly_expand(
+    imgs: Union[torch.Tensor, Sequence[torch.Tensor]], n: int, sigma: float
+) -> Union[torch.Tensor, List[torch.Tensor]]:
+    """Polynomial-expansion coefficients (bx, by, cxx, cyy, cxy),
+    channel-first for `farneback_level`: a list of pyramid levels, each
+    (N_l, H_l, W_l) float32, gives the list of their (N_l, 5, H_l, W_l); a
+    single (N, H, W) tensor is one level and gives one tensor. On CUDA
+    tensors this launches `csrc/farneback_polyexp.cu` once for all the
+    levels (counted in `poly_expand.launches`); on the CPU it runs
+    `poly_expand_reference` level by level."""
+    single = isinstance(imgs, torch.Tensor)
+    levels = [imgs] if single else list(imgs)
+    for img in levels:
+        if img.dim() != 3:
+            raise ValueError(f"poly_expand takes (N, H, W), got {tuple(img.shape)}")
+    if levels:
+        _check("poly_expand", levels, [tuple(t.shape) for t in levels])
+    if not levels or levels[0].device.type == "cpu":
+        outs = [poly_expand_reference(img, n, sigma) for img in levels]
+        return outs[0] if single else outs
     lib = _polyexp_lib()
     if not 0 <= n <= lib.farneback_polyexp_max_n():
         raise ValueError(f"poly_expand: poly_n {n} outside "
                          f"[0, {lib.farneback_polyexp_max_n()}]")
-    nb, h, w = img.shape
-    out = torch.empty((nb, 5, h, w), dtype=torch.float32, device=img.device)
-    if nb == 0:
-        return out
+    outs = [torch.empty((t.shape[0], 5, *t.shape[1:]), dtype=torch.float32,
+                        device=t.device) for t in levels]
     _, packed = _polyexp_consts(n, float(sigma))
-    rc = lib.farneback_polyexp_launch(
-        img.data_ptr(), out.data_ptr(), nb, h, w, n,
-        packed.ctypes.data, _stream(img))
-    if rc != 0:
-        raise RuntimeError(f"poly_expand kernel launch failed: CUDA error {rc}")
-    poly_expand.launches += 1
-    return out
+    # one launch takes up to max_levels levels: a main-path slab's six in one
+    step = lib.farneback_polyexp_max_levels()
+    for s in range(0, len(levels), step):
+        part = [(i, o) for i, o in zip(levels[s:s + step], outs[s:s + step])
+                if i.numel()]
+        if not part:
+            continue
+        k = len(part)
+        ints = lambda vals: (_I * k)(*vals)  # noqa: E731
+        rc = lib.farneback_polyexp_launch(
+            (_P * k)(*(i.data_ptr() for i, _ in part)),
+            (_P * k)(*(o.data_ptr() for _, o in part)),
+            ints(i.shape[0] for i, _ in part), ints(i.shape[1] for i, _ in part),
+            ints(i.shape[2] for i, _ in part), k, n, packed.ctypes.data,
+            _stream(levels[0]))
+        if rc != 0:
+            raise RuntimeError(f"poly_expand kernel launch failed: CUDA error {rc}")
+        poly_expand.launches += 1
+    return outs[0] if single else outs
 
 
 poly_expand.launches = 0
@@ -224,6 +272,107 @@ def farneback_level_reference(
     return u, v, iters
 
 
+# The kernel's placements, in the order of csrc/farneback_level.cu's Placement.
+_PLACEMENTS = ("device", "shared", "split")
+_HALO = 6  # halo rows of the normal-equation planes each side of a band
+MAX_WIN = 2 * _HALO + 1  # the widest box window the kernel takes
+_ONE_CTA_PX = 1_000  # smaller levels take one CTA: __syncthreads, no cluster
+
+
+def _make_plan(h: int, w: int, n: int, placement: str) -> Plan:
+    """The plan of n bands, as even as rows allow, with `placement`."""
+    if placement not in _PLACEMENTS:
+        raise ValueError(f"farneback_level: no placement {placement!r}")
+    if not 1 <= n <= min(MAX_CTAS, h):
+        raise ValueError(f"farneback_level: {n} bands of {h} rows")
+    if n > 1 and h // n < _HALO:
+        raise ValueError(f"farneback_level: {n} bands of {h} rows are shorter "
+                         f"than their {_HALO} halo rows")
+    rows = -(-h // n)
+    # the five planes of M with halo rows, each row with _HALO zero columns
+    # on each side
+    haloed = 5 * (rows + 2 * _HALO) * (w + 2 * _HALO)
+    floats = 10 * w  # rows 0 and h-1 of M
+    if placement == "shared":
+        floats += 2 * rows * w  # u, v
+    scratch = 0
+    if placement == "device":
+        scratch = -(-n * haloed // (h * w))
+    else:
+        floats += haloed
+    return Plan(n, even_starts(h, n), placement, 4 * floats, scratch)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(h: int, w: int) -> Plan:
+    """The kernel's plan for an (h, w) level, from (h, w) alone.
+
+    One CTA below _ONE_CTA_PX pixels. Else a cluster of ONE_WAVE_CTAS, so
+    that a 16-pair slab runs in one wave, with u, v and M in shared memory
+    where they fit, else M alone ("split"); where neither fits, the same
+    in 16 CTAs; where none fits, every plane in device memory in
+    ONE_WAVE_CTAS."""
+    if h * w < _ONE_CTA_PX:
+        return _make_plan(h, w, 1, "shared")
+    for n in (ONE_WAVE_CTAS, MAX_CTAS):
+        n = min(n, max(1, h // _HALO))
+        for placement in ("shared", "split"):
+            plan = _make_plan(h, w, n, placement)
+            if fits(plan):
+                return plan
+    return _make_plan(h, w, min(ONE_WAVE_CTAS, max(1, h // _HALO)), "device")
+
+
+@functools.lru_cache(maxsize=None)
+def _c_plan(plan: Plan) -> tuple:
+    """The plan as the C functions take it."""
+    starts = (_I * len(plan.starts))(*plan.starts)
+    return (_PLACEMENTS.index(plan.placement), plan.n, starts, plan.smem_bytes,
+            plan.scratch_planes)
+
+
+def max_active_clusters(plan: Plan, h: int, w: int, device: torch.device,
+                        win_size: int = 13) -> int:
+    """How many clusters of `plan` fit on `device` at once
+    (`_cluster.active_clusters`, which raises for a plan the card cannot
+    schedule)."""
+    return active_clusters(f"farneback_level(win {win_size})", plan, h, w, device,
+                           lambda out: _level_lib().farneback_level_max_active_clusters(
+                               h, w, int(win_size), *_c_plan(plan), out))
+
+
+def _launch(R0, R1, u, v, *, win_size, num_iters, max_disp, stop_eps, plan=None):
+    """Launch the kernel with `plan` (default `_plan(h, w)`)."""
+    b, _, h, w = R0.shape
+    plan = _plan(h, w) if plan is None else plan
+    uo, vo = torch.empty_like(u), torch.empty_like(v)
+    iters = torch.empty(b, dtype=torch.int32, device=u.device)
+    if b == 0:
+        return uo, vo, iters
+    if win_size > MAX_WIN:
+        raise ValueError(f"farneback_level: the CUDA kernel takes box windows up to "
+                         f"{MAX_WIN}, got {win_size}")
+    max_active_clusters(plan, h, w, u.device, win_size)
+    scratch = None
+    if plan.scratch_planes:
+        scratch = torch.empty((b, plan.scratch_planes, h, w), dtype=torch.float32,
+                              device=u.device)
+    rc = _level_lib().farneback_level_launch(
+        R0.data_ptr(), R1.data_ptr(), u.data_ptr(), v.data_ptr(),
+        uo.data_ptr(), vo.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        iters.data_ptr(),
+        b, h, w, int(win_size), int(num_iters), _f32(max_disp),
+        _f32(1.0 / win_size), _threshold(stop_eps, h, w), *_c_plan(plan), _stream(u))
+    if rc == -1:
+        raise ValueError(f"farneback_level: the kernel does not take {plan} at "
+                         f"{h}x{w} with window {win_size}")
+    if rc != 0:
+        raise RuntimeError(f"farneback_level kernel launch failed for {plan} at "
+                           f"{h}x{w}: CUDA error {rc}")
+    farneback_level.launches += 1
+    return uo, vo, iters
+
+
 def farneback_level(
     R0: torch.Tensor,
     R1: torch.Tensor,
@@ -240,10 +389,11 @@ def farneback_level(
     R0, R1: (B, 5, H, W) float32 polynomial planes; u, v: (B, H, W)
     float32 incoming flow. A pair stops after the iteration whose
     sum(du^2 + dv^2) is <= f32(stop_eps^2*H*W) (stop_eps = 0: never). On a
-    CUDA tensor this launches `csrc/farneback_level.cu` (one call counted in
-    `farneback_level.launches`; it enqueues 1 + 4 * num_iters CUDA
-    kernels); on the CPU it runs `farneback_level_reference`. Returns
-    (u, v, iters), iters (B,) int32."""
+    CUDA tensor this makes one launch of `csrc/farneback_level.cu` with
+    `_plan(H, W)`, every iteration on the card (counted in
+    `farneback_level.launches`; box windows up to MAX_WIN); on the CPU it
+    runs `farneback_level_reference`. Returns (u, v, iters), iters (B,)
+    int32."""
     if R0.dim() != 4 or R0.shape[1] != 5:
         raise ValueError(f"farneback_level takes (B, 5, H, W) planes, got {tuple(R0.shape)}")
     b, _, h, w = R0.shape
@@ -255,26 +405,7 @@ def farneback_level(
               stop_eps=stop_eps)
     if u.device.type == "cpu":
         return farneback_level_reference(R0, R1, u, v, **kw)
-    lib = _level_lib()
-    uo, vo = torch.empty_like(u), torch.empty_like(v)
-    iters = torch.empty(b, dtype=torch.int32, device=u.device)
-    if b == 0:
-        return uo, vo, iters
-    scratch = torch.empty((b, lib.farneback_level_scratch_planes(), h, w),
-                          dtype=torch.float32, device=u.device)
-    partials = torch.empty((b, lib.farneback_level_partials(h, w)),
-                           dtype=torch.float32, device=u.device)
-    active = torch.empty(b, dtype=torch.int32, device=u.device)
-    rc = lib.farneback_level_launch(
-        R0.data_ptr(), R1.data_ptr(), u.data_ptr(), v.data_ptr(),
-        uo.data_ptr(), vo.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
-        active.data_ptr(), iters.data_ptr(), b, h, w, int(win_size),
-        int(num_iters), _f32(max_disp), _f32(1.0 / win_size),
-        _threshold(stop_eps, h, w), _stream(u))
-    if rc != 0:
-        raise RuntimeError(f"farneback_level kernel launch failed: CUDA error {rc}")
-    farneback_level.launches += 1
-    return uo, vo, iters
+    return _launch(R0, R1, u, v, **kw)
 
 
 farneback_level.launches = 0

@@ -18,7 +18,13 @@ Tolerances:
   <= 1.6e-6 px, max 1.3e-5 px over the cases below, with equal iteration
   counts), and a stop that lands on the other side of its threshold
   moves a pair by one iteration.
+
+The level kernel's plan (`_plan`: CTAs a pair, row bands, placement,
+shared memory) is host code and is checked here too; the kernel itself
+runs only on the card (chip_smoke.py phase 7).
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +37,9 @@ from denseflow_tpu.algorithms.farneback import poly_expand as j_poly_expand
 from denseflow_tpu.kernels.common import make_plane_ops
 from denseflow_tpu.kernels.farneback_fused import farneback_level_fused, poly_expand_fused
 from denseflow_tpu.ops.filters import conv1d as j_conv1d
+from denseflow_tpu_torch.algorithms.farneback import FarnebackParams, _level_geometry
+from denseflow_tpu_torch.kernels import farneback_fused as _ff
+from denseflow_tpu_torch.kernels._cluster import SMEM_STATIC
 from denseflow_tpu_torch.kernels.farneback_fused import (
     farneback_level,
     farneback_level_reference,
@@ -137,6 +146,50 @@ def test_poly_expand_wrapper_takes_plain_path_on_cpu():
         poly_expand(torch.zeros((1, 8, 8), device="meta"), N, SIGMA)
 
 
+@pytest.mark.parametrize("shapes", [[(2, 8, 11)], [(3, 9, 14), (3, 17, 29), (3, 40, 56)],
+                                    [(1, 5, 7), (0, 4, 4), (2, 33, 31)]],
+                         ids=["one", "three-levels", "with-empty"])
+def test_poly_expand_list_form_equals_plain_level_by_level(shapes):
+    """A list of levels gives the list of their expansions, each equal to
+    poly_expand_reference on its level bit for bit; a tensor in the list
+    form is the list of one level."""
+    rng = np.random.default_rng(len(shapes))
+    imgs = [_t(rng.uniform(0, 255, s).astype(np.float32)) for s in shapes]
+    before = poly_expand.launches
+    outs = poly_expand(imgs, N, SIGMA)
+    assert poly_expand.launches == before and isinstance(outs, list)
+    assert len(outs) == len(imgs)
+    for img, out in zip(imgs, outs):
+        assert out.shape == (img.shape[0], 5, *img.shape[1:])
+        assert torch.equal(out, poly_expand_reference(img, N, SIGMA))
+    assert torch.equal(poly_expand(imgs[:1], N, SIGMA)[0], poly_expand(imgs[0], N, SIGMA))
+
+
+def test_poly_expand_list_form_checks_every_level():
+    good = torch.zeros((1, 8, 8))
+    assert poly_expand([], N, SIGMA) == []
+    with pytest.raises(ValueError, match="N, H, W"):
+        poly_expand([good, torch.zeros((8, 8))], N, SIGMA)
+    with pytest.raises(ValueError, match="float32"):
+        poly_expand([good, good.double()], N, SIGMA)
+    with pytest.raises(ValueError, match="contiguous"):
+        poly_expand([good, torch.zeros((1, 8, 8)).transpose(1, 2)], N, SIGMA)
+
+
+PYRAMID = [(12, 17), (24, 34), (48, 68)]  # a small three-level pyramid
+
+
+@pytest.mark.parametrize("level", range(len(PYRAMID)), ids=[f"{h}x{w}" for h, w in PYRAMID])
+def test_poly_expand_list_form_matches_pallas_interpret(level):
+    """Each level of one list call against JAX's poly_expand_fused on that
+    level, within the gate above."""
+    rng = np.random.default_rng(21)
+    imgs = [rng.uniform(0, 255, (2, h, w)).astype(np.float32) for h, w in PYRAMID]
+    got = poly_expand([_t(a) for a in imgs], N, SIGMA)[level].numpy()
+    want = np.asarray(poly_expand_fused(jnp.asarray(imgs[level]), N, SIGMA, interpret=True))
+    _poly_gate(got, want)
+
+
 # ---------------- one level ----------------
 
 def _translated_R(b, h, w, seed=1):
@@ -230,3 +283,94 @@ def test_level_wrapper_takes_plain_path_on_cpu_and_checks_args():
     # no iterations: the flow comes back as it went in
     u0, v0, it = farneback_level(*args, **dict(DEFAULT, num_iters=0))
     assert torch.equal(u0, args[2]) and torch.equal(v0, args[3]) and it.tolist() == [0, 0]
+
+
+# ---- the level kernel's plan (kernels/farneback_fused.py::_plan), on the CPU ----
+
+MAIN_PATH = [(lh, lw) for _, lh, lw, _, _ in _level_geometry(256, 341, FarnebackParams())]
+PLAN_GEOMETRIES = sorted(set(
+    MAIN_PATH
+    + [(lh, lw) for _, lh, lw, _, _ in _level_geometry(360, 480, FarnebackParams())]
+    + [(1080, 1920), (37, 53), (64, 80), (40, 56), (24, 40), (16, 16), (3, 400), (1, 2)]
+))
+SMEM_PER_CTA = 232_448  # bytes of shared memory a CTA may use on sm_90
+HALO = 6  # halo rows of the normal-equation planes each side of a band
+
+
+def test_main_path_levels_are_the_six_of_256x341():
+    assert MAIN_PATH == [(8, 11), (16, 21), (32, 43), (64, 85), (128, 170), (256, 341)]
+
+
+@pytest.mark.parametrize("hw", PLAN_GEOMETRIES, ids=[f"{h}x{w}" for h, w in PLAN_GEOMETRIES])
+def test_plan_bands_cover_rows_and_fit(hw):
+    h, w = hw
+    plan = _ff._plan(h, w)
+    assert 1 <= plan.n <= 16
+    assert len(plan.starts) == plan.n + 1
+    assert plan.starts[0] == 0 and plan.starts[-1] == h
+    rows = [b - a for a, b in zip(plan.starts, plan.starts[1:])]
+    assert max(rows) - min(rows) <= 1 and min(rows) >= 1  # every row once
+    # a band of a cluster holds the halo rows its neighbours read
+    assert min(rows) >= (HALO if plan.n > 1 else 1)
+    assert plan.smem_bytes + SMEM_STATIC <= SMEM_PER_CTA
+    # M with its halo rows, each row with its zero columns
+    haloed = 5 * (max(rows) + 2 * HALO) * (w + 2 * HALO)
+    edges = 10 * w  # rows 0 and h-1 of M
+    if plan.placement == "device":
+        assert plan.smem_bytes == 4 * edges
+        assert plan.scratch_planes * h * w >= plan.n * haloed
+        assert (plan.scratch_planes - 1) * h * w < plan.n * haloed
+    elif plan.placement == "shared":
+        assert plan.smem_bytes == 4 * (edges + 2 * max(rows) * w + haloed)
+        assert plan.scratch_planes == 0
+    else:
+        assert plan.placement == "split"
+        assert plan.smem_bytes == 4 * (edges + haloed) and plan.scratch_planes == 0
+
+
+@pytest.mark.parametrize("hw", PLAN_GEOMETRIES, ids=[f"{h}x{w}" for h, w in PLAN_GEOMETRIES])
+def test_plan_depends_on_h_w_alone(hw):
+    # B never reaches the plan: a pair's bytes cannot depend on its batch
+    assert list(inspect.signature(_ff._plan).parameters) == ["h", "w"]
+    first = _ff._plan(*hw)
+    _ff._plan.cache_clear()
+    assert _ff._plan(*hw) == first
+
+
+# (level, CTAs a pair, placement): one CTA under 1,000 px; one wave of
+# clusters of up to 6 where u, v and M fit (5 at 32x43, whose bands must
+# hold the six halo rows); M alone in 16 CTAs at 256x341; device memory
+# where no cluster holds M
+PLANS = [((8, 11), 1, "shared"), ((16, 21), 1, "shared"), ((32, 43), 5, "shared"),
+         ((64, 85), 6, "shared"), ((128, 170), 6, "shared"), ((256, 341), 16, "split"),
+         ((360, 480), 6, "device"), ((1080, 1920), 6, "device")]
+
+
+@pytest.mark.parametrize("hw,n,placement", PLANS, ids=[f"{h}x{w}" for (h, w), _, _ in PLANS])
+def test_plan_at_each_level(hw, n, placement):
+    plan = _ff._plan(*hw)
+    assert (plan.n, plan.placement) == (n, placement)
+
+
+def test_plans_cover_the_main_path():
+    assert sorted(hw for hw, _, _ in PLANS if hw in MAIN_PATH) == sorted(MAIN_PATH)
+
+
+@pytest.mark.parametrize("h,n,placement", [
+    (37, 0, "shared"),    # no CTA
+    (37, 17, "shared"),   # over the largest cluster
+    (37, 17, "device"),
+    (12, 13, "device"),   # more bands than rows
+    (12, 13, "shared"),
+    (12, 3, "shared"),    # four-row bands: shorter than the six halo rows
+    (12, 3, "split"),
+    (12, 3, "device"),
+    (37, 4, "tiled"),     # no such placement
+])
+def test_make_plan_refuses_what_the_kernel_does_not_run(h, n, placement):
+    with pytest.raises(ValueError):
+        _ff._make_plan(h, 53, n, placement)
+
+
+def test_max_window_is_the_halo_reach():
+    assert _ff.MAX_WIN == 2 * HALO + 1 == FarnebackParams().win_size
