@@ -60,8 +60,22 @@ Phases (each prints its lines; any failure exits non-zero):
     analytic goldens (tests/test_fidelity.py:67-77) and a central EPE under
     0.2 px on the 64x80 translation (tests/test_solvers.py:108-117);
 12. the brox path end to end, as phase 5:
-    `-a=brox -s=1 -b=20 -st=jpg -ns=256 --strict`.
+    `-a=brox -s=1 -b=20 -st=jpg -ns=256 --strict`;
+13. the native emitter on this machine: the g++, libjpeg and libpng
+    versions, the CPU count and the emitter's threads; the emitter must
+    build where the headers are (where they are not, phases 5, 9, 12 and 14
+    print `writer cv2`); 998 textured 256x341 gray planes written by cv2
+    one by one and, where the emitter built, by `write_jpg_batch`, both
+    timed, each native jpg checked against tests/test_native.py's
+    tolerances and against cv2's bytes; 256x341 colour jpgs and lossless
+    pngs;
+14. the png and h5 save types end to end, as phase 5 with `-st=png`,
+    `-st=h5` and `-st=h5 --h5Dtype=f16`: 499 pngs or 998 float32 datasets
+    by the JAX package's names, 160 `tvl1_scale` launches each, the centre
+    flow (decoded with the port's `dequantize_flow_png`, or read from the
+    h5) within 0.3 px of the content's motion, f16 within 2e-2 px of f32.
 
+Phases 5, 9, 12 and 14 print the writer that ran beside the stage times.
 Each phase prints its wall time.
 
 The last three lines are the card's name and power limit, the kernels'
@@ -476,7 +490,7 @@ def phase_main_path(video: Path, work: Path, card: str, algorithm: str,
         f"{n_flows} flows in {stats['wall_s']:.6g} s = "
         f"{n_flows / stats['wall_s']:.6g} flows/s end to end; stage times "
         + ", ".join(f"{k} {v:.6g} s" for k, v in sorted(stats["stage_times"].items()))
-        + "; " + ", ".join(f"{k} launches {v} over {slabs} slabs ({v / slabs:.3g} per slab)"
+        + f"; writer {stats['writer']}; " + ", ".join(f"{k} launches {v} over {slabs} slabs ({v / slabs:.3g} per slab)"
                            for k, v in launches.items())
         + f"; {card}")
     n_want = N_FRAMES - 1
@@ -1117,6 +1131,220 @@ def phase_farn_fidelity() -> None:
         raise SystemExit("farn over the cv2 gate")
 
 
+# ---------------- emission ----------------
+
+# Prints the versions of the headers the emitter compiles against and of
+# the libraries it links.
+_EMITTER_PROBE = r"""
+#include <cstdio>
+#include <jpeglib.h>
+#include <png.h>
+#define STR2(x) #x
+#define STR(x) STR2(x)
+int main() {
+#ifdef LIBJPEG_TURBO_VERSION
+    std::printf("libjpeg-turbo %s, ", STR(LIBJPEG_TURBO_VERSION));
+#endif
+    std::printf("JPEG_LIB_VERSION %d; libpng %s (header %s)\n", JPEG_LIB_VERSION,
+                png_get_libpng_ver(nullptr), PNG_LIBPNG_VER_STRING);
+    return 0;
+}
+"""
+
+
+def probe_emitter_headers(work: Path):
+    """(the probe's version line, None), or (None, why) when g++ or the
+    libjpeg / libpng headers are missing."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None, "g++ not found"
+    log(f"[emitter] {subprocess.run([gxx, '--version'], capture_output=True, text=True).stdout.splitlines()[0]}")
+    src, exe = work / "probe.cpp", work / "probe"
+    src.write_text(_EMITTER_PROBE)
+    cc = subprocess.run([gxx, str(src), "-o", str(exe), "-ljpeg", "-lpng"],
+                        capture_output=True, text=True, timeout=120)
+    if cc.returncode != 0:
+        missing = [ln for ln in cc.stderr.splitlines() if "No such file" in ln]
+        if missing:
+            return None, missing[0].strip()
+        raise SystemExit(f"the emitter's header probe did not build:\n{cc.stderr}")
+    return subprocess.run([str(exe)], capture_output=True, text=True,
+                          check=True).stdout.strip(), None
+
+
+def textured(n: int, h: int, w: int, seed: int, channels: int = 0) -> np.ndarray:
+    """n smooth-noise uint8 planes (h, w), or (h, w, channels): windows of
+    one smooth field, one row apart, like consecutive flow planes."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    shape = (h + n, w) + ((channels,) if channels else ())
+    sigma = (3.0, 3.0) + ((0.0,) if channels else ())
+    base = ndi.gaussian_filter(rng.uniform(0, 255, shape), sigma)
+    base = (base - base.min()) / (np.ptp(base) + 1e-9) * 255
+    base = np.round(base).astype(np.uint8)
+    return np.stack([base[i:i + h] for i in range(n)])
+
+
+def phase_emitter(work: Path, card: str) -> None:
+    """The native emitter on this machine, against cv2 in the same call."""
+    import os
+
+    import cv2
+
+    from denseflow_tpu_torch import native
+    from denseflow_tpu_torch.io.writer import encode_jpg, write_flow_images
+
+    versions, missing = probe_emitter_headers(work)
+    log(f"[emitter] os.cpu_count() {os.cpu_count()}; the emitter's threads "
+        f"{native.DEFAULT_THREADS}")
+    h, w, n = 256, 341, 2 * (N_FRAMES - 1)
+    planes = textured(n, h, w, seed=13)
+    ref = work / "emit_cv2"
+    ref.mkdir()
+    t0 = time.perf_counter()
+    write_flow_images([encode_jpg(p) for p in planes], str(ref / "flow_x"), 1, 0)
+    t_cv2 = time.perf_counter() - t0
+    log(f"[emitter] {n} gray {h}x{w} jpgs through cv2 encode_jpg + "
+        f"write_flow_images, one thread: {t_cv2:.6g} s ({n / t_cv2:.6g} files/s); {card}")
+    if missing is not None:
+        log(f"[emitter] headers missing ({missing}): the writer is cv2")
+        if native.available():
+            raise SystemExit("the emitter built though its headers are missing")
+        log(f"[emitter] writer {native.describe()}")
+        return
+    log(f"[emitter] {versions}")
+    if not native.available():
+        raise SystemExit(f"the headers are here but the emitter did not build:\n"
+                         f"{native.build_error()}")
+    log(f"[emitter] writer {native.describe()}")
+    nat = work / "emit_native"
+    nat.mkdir()
+    paths = [str(nat / f"flow_x_{i:05d}.jpg") for i in range(n)]
+    t0 = time.perf_counter()
+    native.write_jpg_batch(planes, paths)
+    t_nat = time.perf_counter() - t0
+    same = worst = worst_cv2 = 0.0
+    for i, p in enumerate(paths):
+        a = Path(p).read_bytes()
+        b = (ref / Path(p).name).read_bytes()
+        same += a == b
+        img = cv2.imdecode(np.frombuffer(a, np.uint8), cv2.IMREAD_GRAYSCALE).astype(int)
+        worst = max(worst, float(np.abs(img - planes[i]).mean()))
+        other = cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_GRAYSCALE)
+        worst_cv2 = max(worst_cv2, float(np.abs(img - other).mean()))
+    log(f"[emitter] {n} gray {h}x{w} jpgs: write_jpg_batch {t_nat:.6g} s "
+        f"({n / t_nat:.6g} files/s, {native.DEFAULT_THREADS} threads), {t_cv2 / t_nat:.4g}x "
+        f"cv2's; byte-equal to cv2's {int(same)} of {n}; worst mean |decoded - plane| "
+        f"{worst:.4g} (limit 4), worst mean |native - cv2| decoded {worst_cv2:.4g} "
+        f"(limit 2); {card}")
+    if not (worst < 4 and worst_cv2 < 2):
+        raise SystemExit("native jpgs outside tests/test_native.py's tolerances")
+    shutil.rmtree(nat)
+    shutil.rmtree(ref)
+    colour = textured(16, h, w, seed=14, channels=3)
+    paths = [str(work / f"img_{i:05d}.jpg") for i in range(16)]
+    native.write_jpg_color_batch(colour, paths)
+    errs = [float(np.abs(cv2.imread(p).astype(int) - colour[i]).mean())
+            for i, p in enumerate(paths)]
+    same = sum(Path(p).read_bytes() == encode_jpg(colour[i]) for i, p in enumerate(paths))
+    pngs = [str(work / f"flow_{i:05d}.png") for i in range(16)]
+    native.write_png_batch(colour, pngs)
+    lossless = all(np.array_equal(cv2.imread(p, cv2.IMREAD_UNCHANGED), colour[i])
+                   for i, p in enumerate(pngs))
+    log(f"[emitter] 16 colour {h}x{w} jpgs: worst mean |decoded - frame| "
+        f"{max(errs):.4g} (limit 4), byte-equal to cv2's {same} of 16; 16 pngs "
+        f"pixel-equal to their input: {lossless}")
+    if not (max(errs) < 4 and lossless):
+        raise SystemExit("native colour jpgs or pngs do not decode to their input")
+
+
+def phase_save_types(video: Path, work: Path, card: str, tvl1_scale) -> None:
+    """The tvl1 path through cli.run with -st=png, -st=h5 and -st=h5
+    --h5Dtype=f16, each with the kernel's launch count set to 0 before it."""
+    import cv2
+    import torch
+
+    from denseflow_tpu_torch.cli import parse_args, run
+    from denseflow_tpu_torch.io import writer
+    from denseflow_tpu_torch.quantize import dequantize_flow_png
+
+    n_want = N_FRAMES - 1
+    want = -2.0 * 341 / 480  # content moves -2 px/frame at width 480
+    runs = [("png", []), ("h5", []), ("h5", ["--h5Dtype=f16"])]
+    h5_x = {}
+    for st, extra in runs:
+        tag = f"[save {st}{' f16' if extra else ''}]"
+        out_root = work / f"out_{st}{len(extra)}"
+        cfg = parse_args([str(video), f"-o={out_root}", "-a=tvl1", "-s=1", "-b=20",
+                          f"-st={st}", "-ns=256", "--strict", f"--device={DEVICE}",
+                          *extra])
+        stats: dict = {}
+        tvl1_scale.launches = 0
+        if st == "h5" and not writer.HAVE_H5:
+            log(f"{tag} h5py is not installed here")
+            try:
+                run(cfg, stats_out=stats)
+            except RuntimeError as e:
+                if "HDF5 support is not available" in str(e):
+                    log(f"{tag} fails as the JAX package does: {e}")
+                    continue
+                raise
+            raise SystemExit("-st=h5 ran without h5py")
+        rc = run(cfg, stats_out=stats)
+        launches = tvl1_scale.launches
+        n_flows = stats["counters"].total_flows
+        if rc != 0 or stats["errors"]:
+            raise SystemExit(f"{tag} failed: rc {rc}, errors {stats['errors']}")
+        out = out_root / video.stem
+        centre = []
+        if st == "png":
+            files = sorted(out.glob("*.png"))
+            names = [f"flow_{i:05d}.png" for i in range(n_want)]
+            ok_names = [p.name for p in files] == names
+            for i in (n_want // 5, n_want // 2, 4 * n_want // 5):
+                img = torch.from_numpy(cv2.imread(str(files[i]), cv2.IMREAD_UNCHANGED))
+                f = dequantize_flow_png(img).numpy()[20:-20, 20:-20]
+                centre.append((files[i].name, float(f[..., 0].mean()), float(f[..., 1].mean())))
+            what = f"{len(files)} pngs"
+        else:
+            import h5py
+
+            names = sorted(f"flow_{c}_{i:05d}" for c in "xy" for i in range(n_want))
+            with h5py.File(out_root / f"{video.stem}.h5") as f:
+                ok_names = sorted(f) == names and all(
+                    f[k].dtype == np.float32 and f[k].shape == (256, 341) for k in f)
+                for i in (n_want // 5, n_want // 2, 4 * n_want // 5):
+                    k = f"{i:05d}"
+                    centre.append((k, float(f[f"flow_x_{k}"][20:-20, 20:-20].mean()),
+                                   float(f[f"flow_y_{k}"][20:-20, 20:-20].mean())))
+                x = np.stack([f[f"flow_x_{i:05d}"][:] for i in range(0, n_want, 7)])
+            if extra:
+                d = float(np.abs(x - h5_x["f32"]).max())
+                log(f"{tag} max |f16 - f32| over {len(x)} flow_x datasets {d:.4g} px "
+                    f"(limit 2e-2)")
+                if not d <= 2e-2:
+                    raise SystemExit("the f16 h5 strays from the f32 h5")
+            else:
+                h5_x["f32"] = x
+            what = f"{len(names)} float32 datasets"
+        log(f"{tag} rc {rc}; {what}, names as the JAX package's: {ok_names}; {n_flows} "
+            f"flows in {stats['wall_s']:.6g} s = {n_flows / stats['wall_s']:.6g} flows/s end "
+            f"to end; stage times "
+            + ", ".join(f"{k} {v:.6g} s" for k, v in sorted(stats["stage_times"].items()))
+            + f"; writer {stats['writer']}; tvl1_scale launches {launches}; {card}")
+        for name, cx, cy in centre:
+            log(f"{tag} {name}: centre flow ({cx:.4f}, {cy:.4f}) px (want ({want:.4f}, 0) "
+                f"within 0.3)")
+        if not ok_names or n_flows != n_want:
+            raise SystemExit(f"{tag} did not write {n_want} flows by the JAX package's names")
+        if launches != 5 * main_path_slabs():
+            raise SystemExit(f"{tag} launched tvl1_scale {launches} times")
+        if any(abs(cx - want) > 0.3 or abs(cy) > 0.3 for _, cx, cy in centre):
+            raise SystemExit(f"{tag} decoded flow does not match the content's motion")
+        shutil.rmtree(out_root)
+
+
 def timed(n: int, fn, *args):
     """fn(*args), then phase n's wall time."""
     t0 = time.perf_counter()
@@ -1181,6 +1409,8 @@ def main() -> int:
         timed(11, phase_brox_fidelity)
         launches.update(timed(12, phase_main_path, video, work, card, "brox",
                               {"brox_scale": brox_scale}))
+        timed(13, phase_emitter, work, card)
+        timed(14, phase_save_types, video, work, card, tvl1_scale)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for r in records:

@@ -20,6 +20,7 @@ import os
 import sys
 from typing import Dict, List, Optional, Tuple
 
+from denseflow_tpu_torch import native
 from denseflow_tpu_torch.config import FlowConfig
 from denseflow_tpu_torch.extract_frames import extract_frames_only
 from denseflow_tpu_torch.io.reader import expand_jobs
@@ -57,7 +58,7 @@ Usage: denseflow [params] input
     -s, --step (value:0)
         right - left (0 for img, non-0 for flow)
     -st, --saveType (value:jpg)
-        save format type (jpg; png/h5 not ported yet)
+        save format type (jpg/png/h5)
     -v, --verbose
         verbose
 
@@ -77,14 +78,15 @@ Extensions:
     --devices (value:0)        GPUs to spread pair batches over; 0 or 1
                                (the first card), more not ported yet
     --profile=DIR              capture a torch.profiler trace into DIR
-    --wirePack (value:1)       accepted, no effect: the jpg payload crosses
-                               to the host as raw uint8, and the codec of
-                               denseflow_tpu is lossless, so the files are
+    --wirePack (value:1)       accepted, no effect: the payload crosses to
+                               the host as it is, and the codecs of
+                               denseflow_tpu are lossless, so the files are
                                the same
     --maxDisp (value:0)        finest-level displacement clamp in px
                                (0 = solver default 40); raise for very
                                fast motion at high resolution
-    --h5Dtype (value:f32)      with -st=h5 (not ported yet)
+    --h5Dtype (value:f32)      with -st=h5: f16 halves the flow's copy to
+                               the host (lossy ~1e-3); datasets stay f32
     --widthBucket (value:0)    pad frame width up to a multiple of N on
                                device and crop host-side (0 = exact)
     --device (value:cuda)      torch device of the solver: cuda (the card)
@@ -169,9 +171,9 @@ def parse_args(argv: List[str]) -> Optional[FlowConfig]:
 
 def run(cfg: FlowConfig, stats_out: "dict | None" = None) -> int:
     """Execute a parsed config. stats_out (optional) receives run
-    telemetry: per-stage wall times, counters and wall seconds, so a
-    caller can attribute the headline number to stages without parsing
-    stdout."""
+    telemetry: per-stage wall times, counters, wall seconds and the writer
+    that ran ("native, k threads", "cv2: <why>" or "h5py"), so a caller
+    can attribute the headline number to stages without parsing stdout."""
     cfg.validate()
     if cfg.step != 0:
         resolve_device(cfg.device)  # no card for "cuda": raise before work
@@ -184,12 +186,16 @@ def run(cfg: FlowConfig, stats_out: "dict | None" = None) -> int:
     start_t = current_seconds()
     try:
         if cfg.step == 0:
+            writer = native.describe()
+            if cfg.verbose:
+                print(f"writer: {writer}")
             counters = Counters()
             extract_frames_only(cfg, jobs, counters)
             errors: list = []
         else:
             pipe = Pipeline(cfg, jobs, is_record)
             pipe.launch()
+            writer = pipe.writer
             counters = pipe.counters
             errors = pipe.errors
             if cfg.verbose and pipe.timers.totals:
@@ -204,6 +210,7 @@ def run(cfg: FlowConfig, stats_out: "dict | None" = None) -> int:
         stats_out["counters"] = counters
         stats_out["wall_s"] = end_t - start_t
         stats_out["errors"] = list(errors)
+        stats_out["writer"] = writer
     n_videos, n_frames, n_flows = len(jobs), counters.total_frames, counters.total_flows
     print(
         format_summary(

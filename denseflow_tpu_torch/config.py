@@ -19,8 +19,6 @@ SAVE_TYPES = ("jpg", "png", "h5")
 
 # feature -> (its flag, the ROADMAP.md item that ports it)
 UNPORTED = {
-    "png": ("-st=png", "A6 (png and h5 save types)"),
-    "h5": ("-st=h5", "A6 (png and h5 save types)"),
     "devices": ("--devices>1", "A10 (multi-GPU and multi-host)"),
     "distributed": ("--distributed", "A10 (multi-GPU and multi-host)"),
 }
@@ -71,9 +69,10 @@ class FlowConfig:
     # Local GPUs to spread pair batches over (0 = the first card). Only one
     # card is supported so far; more raise (check_ported).
     devices: int = 0
-    # Accepted for flag compatibility and has no effect: the jpg payload
-    # crosses to the host as raw uint8, and the JAX package's wire codec is
-    # lossless, so the bytes on disk are the same either way.
+    # Accepted for flag compatibility and has no effect: the payload crosses
+    # to the host as it is (uint8 planes, or the h5 path's floats), and the
+    # JAX package's wire codecs are lossless, so the bytes on disk are the
+    # same either way.
     wire_pack: bool = True
     # Capture a torch.profiler trace of the run into this directory.
     profile_dir: Optional[str] = None
@@ -85,6 +84,8 @@ class FlowConfig:
     # Finest-level displacement clamp (px) of the solver's warp; 0 = the
     # solver default (40).
     max_disp: int = 0
+    # Precision of the h5 flow's copy to the host: "f32", or "f16" (cast on
+    # the device, widened back on the host; datasets stay float32).
     h5_dtype: str = "f32"
     # Pad frame WIDTH up to a multiple of this before the device solve and
     # crop the payload back host-side (0 = off, exact geometry).
@@ -130,13 +131,7 @@ class FlowConfig:
         self.check_ported()
 
     def check_ported(self) -> None:
-        """Refuse what the JAX package runs and this package cannot yet.
-        step=0 only extracts frames, so the flow path's limits do not
-        apply to it."""
-        if self.step != 0:
-            for key in (self.algorithm, self.save_type):
-                if key in UNPORTED:
-                    raise NotImplementedError(_unported_msg(key))
+        """Refuse what the JAX package runs and this package cannot yet."""
         if self.devices > 1:
             raise NotImplementedError(_unported_msg("devices"))
         if self.distributed:

@@ -1,7 +1,7 @@
-"""Device executor: turns decoded frame chunks into quantized jpg payloads.
+"""Device executor: turns decoded frame chunks into the save type's payload.
 
 The port of the JAX package's `denseflow_tpu/executor.py` for one CUDA
-device and the jpg save type:
+device:
 
 * the chunk's frames cross to the device **once**, from pinned host memory
   on a copy stream, started by the decode stage so the copy of chunk i+1
@@ -9,16 +9,20 @@ device and the jpg save type:
 * pairs are sliced out of the resident chunk in slabs of `pair_batch`
   (a = step>0 ? i : i-step, b = step>0 ? i+step : i, flow a -> b, reference
   src/denseflow_gpu.cpp:315-316); each slab is solved, checked for clamp
-  saturation and CAST-quantized on the device;
+  saturation and turned into the save type's payload on the device: CAST
+  planes for jpg, the adaptive-bound 3-channel planes for png, the raw
+  float32 flow for h5 (float16 with `--h5Dtype=f16`, widened back to
+  float32 on the host);
 * chunk pair counts are bucketed to pair_batch * 2^k, padded pairs repeat
   the last frame and are dropped on the host; widths may be bucketed with
   edge-replicated columns that are cropped back on the host;
-* the uint8 payload is copied to pinned host memory on the compute stream
-  and an event marks its arrival, so the pipeline dispatches chunk i+1
-  before it waits for chunk i.
+* the payload is copied to pinned host memory on the compute stream and an
+  event marks its arrival, so the pipeline dispatches chunk i+1 before it
+  waits for chunk i.
 
-The payload crosses as raw uint8: the JAX package's wire codecs exist for
-a remote-device link and are lossless, so the bytes on disk are the same.
+The payload crosses as it is: the JAX package's wire codecs exist for a
+remote-device link and are lossless (the uint8 codec and the h5 path's
+float32 codec alike), so the bytes on disk are the same.
 On the CPU (device="cpu") the same steps run synchronously.
 """
 
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from denseflow_tpu_torch.algorithms import make_solver
-from denseflow_tpu_torch.quantize import quantize_flow_pair
+from denseflow_tpu_torch.quantize import quantize_flow_pair, quantize_flow_png
 from denseflow_tpu_torch.utils import resolve_device
 
 
@@ -49,7 +53,7 @@ class ResidentChunk:
 
 @dataclass
 class _Dispatched:
-    q: torch.Tensor  # (mb, 2, H, W) uint8, host (pinned on CUDA)
+    q: torch.Tensor  # the chunk's payload (see _solve_q), host (pinned on CUDA)
     sat: torch.Tensor  # (mb,) float32, host
     done: "torch.cuda.Event | None"
     m: int  # real pairs
@@ -60,7 +64,8 @@ class _Dispatched:
 
 
 class DeviceExecutor:
-    """Per-(video geometry, algorithm) solve + quantize step on one device."""
+    """Per-(video geometry, algorithm, save type) solve + payload step on
+    one device."""
 
     def __init__(
         self,
@@ -74,6 +79,8 @@ class DeviceExecutor:
         max_disp: int = 0,
         width_bucket: int = 0,
         device: str = "cuda",
+        save_type: str = "jpg",
+        h5_f16: bool = False,
     ) -> None:
         self.height = height
         self.w_real = width
@@ -82,6 +89,10 @@ class DeviceExecutor:
         self.width = width
         self.step = step
         self.bound = float(bound)
+        self.save_type = save_type
+        # h5 only: downcast the flow to f16 on the device before the copy
+        # (config.h5_dtype); disk datasets stay float32
+        self.h5_f16 = bool(h5_f16) and save_type == "h5"
         self.device = resolve_device(device)
         self.B = pair_batch
         self.astep = abs(step)
@@ -143,17 +154,24 @@ class DeviceExecutor:
         return ResidentChunk(dev, ready)
 
     def _solve_q(self, frames: torch.Tensor, s: int, n_pairs: int):
-        """Solve pairs [s, s+n_pairs) of the resident chunk into the
-        (n, 2, H, W) uint8 jpg payload and the per-pair CLAMP-SATURATION
+        """Solve pairs [s, s+n_pairs) of the resident chunk into the save
+        type's payload — jpg (n, 2, H, W) uint8, png (n, 3, H, W) uint8, h5
+        (n, H, W, 2) float32 or float16 — and the per-pair CLAMP-SATURATION
         fraction: the share of pixels whose flow sits at the warp's
-        displacement clamp, the signal behind auto-escalation."""
+        displacement clamp, the signal behind auto-escalation. The png
+        bound is taken over the solved width, padded columns included, as
+        the JAX package does with --widthBucket."""
         I0 = frames[s + self._off_a: s + self._off_a + n_pairs]
         I1 = frames[s + self._off_b: s + self._off_b + n_pairs]
         flow = self._solver(I0, I1)
         thresh = float(np.float32(0.98 * self.max_disp_eff))
         sat = (flow.abs().amax(dim=-1) >= thresh).to(torch.float32).mean(dim=(-2, -1))
-        qx, qy = quantize_flow_pair(flow, self.bound)
-        return torch.stack([qx, qy], dim=1), sat
+        if self.save_type == "h5":
+            return (flow.to(torch.float16) if self.h5_f16 else flow), sat
+        if self.save_type == "jpg":
+            qx, qy = quantize_flow_pair(flow, self.bound)
+            return torch.stack([qx, qy], dim=1), sat
+        return quantize_flow_png(flow).movedim(-1, 1), sat
 
     def dispatch_chunk(self, frames, n_frames: int) -> List[_Dispatched]:
         """Queue the whole chunk's solve and the copy of its payload to the
@@ -184,12 +202,19 @@ class DeviceExecutor:
         return [_Dispatched(q_host, sat_host, done, m)]
 
     def collect_chunk(self, outs: List[_Dispatched]) -> Iterator:
-        """Yield ((imgs_x, imgs_y), pair_offset, n_pairs) per dispatched
-        chunk: uint8 (m, H, W) planes, cropped to the real width."""
+        """Yield (payload, pair_offset, n_pairs) per dispatched chunk,
+        cropped to the real width: jpg -> (imgs_x, imgs_y) uint8 (m, H, W);
+        png -> (m, H, W, 3) uint8; h5 -> (m, H, W, 2) float32."""
         for d in outs:
             d.wait()
-            q = d.q.numpy()[: d.m, :, :, : self.w_real]
-            yield (q[:, 0], q[:, 1]), 0, d.m
+            q = d.q.numpy()[: d.m]
+            if self.save_type == "h5":
+                yield np.asarray(q[:, :, : self.w_real], np.float32), 0, d.m
+            elif self.save_type == "jpg":
+                q = q[..., : self.w_real]
+                yield (q[:, 0], q[:, 1]), 0, d.m
+            else:
+                yield np.moveaxis(q[..., : self.w_real], 1, -1), 0, d.m
 
     def saturation_frac(self, outs: List[_Dispatched]) -> float:
         """Max per-pair clamp-saturation fraction across a dispatched
@@ -205,15 +230,23 @@ class DeviceExecutor:
         """dispatch_chunk + collect_chunk in one call (single-chunk use)."""
         yield from self.collect_chunk(self.dispatch_chunk(frames, n_frames))
 
-    def run_chunk(self, frames, n_frames: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Blocking form of `iter_chunk`: the whole chunk's (imgs_x, imgs_y)."""
+    def run_chunk(
+        self, frames, n_frames: int
+    ) -> "np.ndarray | Tuple[np.ndarray, np.ndarray]":
+        """Blocking form of `iter_chunk`: the whole chunk's payload at once."""
         outs = [p for p, _, _ in self.iter_chunk(frames, n_frames)]
         if not outs:
-            e = np.empty((0, self.height, self.w_real), np.uint8)
-            return e, e
-        xs = np.concatenate([o[0] for o in outs], axis=0)
-        ys = np.concatenate([o[1] for o in outs], axis=0)
-        return xs, ys
+            if self.save_type == "jpg":
+                e = np.empty((0, self.height, self.w_real), np.uint8)
+                return e, e
+            if self.save_type == "png":
+                return np.empty((0, self.height, self.w_real, 3), np.uint8)
+            return np.empty((0, self.height, self.w_real, 2), np.float32)
+        if isinstance(outs[0], tuple):
+            xs = np.concatenate([o[0] for o in outs], axis=0)
+            ys = np.concatenate([o[1] for o in outs], axis=0)
+            return xs, ys
+        return np.concatenate(outs, axis=0)
 
 
 # Serializes executor CONSTRUCTION: concurrent decode workers hitting a
@@ -237,8 +270,10 @@ def get_executor(
     max_disp: int = 0,
     width_bucket: int = 0,
     device: str = "cuda",
+    save_type: str = "jpg",
+    h5_f16: bool = False,
 ) -> DeviceExecutor:
     key = (algorithm, height, width, step, bound, pair_batch, preset,
-           max_disp, width_bucket, device)
+           max_disp, width_bucket, device, save_type, h5_f16)
     with _executor_lock:
         return _get_executor_locked(*key)

@@ -1,7 +1,11 @@
 from denseflow_tpu_torch.io.writer import (
     flow_file_name,
+    h5_file_name,
     write_flow_images,
+    write_flow_images_png,
     write_images,
+    write_hdf5,
+    create_h5_file,
     done_paths,
     mark_done,
 )
@@ -14,8 +18,12 @@ from denseflow_tpu_torch.io.reader import (
 
 __all__ = [
     "flow_file_name",
+    "h5_file_name",
     "write_flow_images",
+    "write_flow_images_png",
     "write_images",
+    "write_hdf5",
+    "create_h5_file",
     "done_paths",
     "mark_done",
     "VideoSource",

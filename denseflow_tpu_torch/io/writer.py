@@ -1,4 +1,4 @@
-"""Emission layer: file naming grammar, jpg encoding, .done markers.
+"""Emission layer: file naming grammar, jpg/png/h5 writers, .done markers.
 
 Byte-compatible with the reference's output contract, as the JAX package's
 `denseflow_tpu/io/writer.py` implements it:
@@ -9,10 +9,14 @@ Byte-compatible with the reference's output contract, as the JAX package's
   step<0, plain `_%05d` for step==1, with index offset
   `base = step>0 ? 0 : -step` so backward flow is named by its *right*
   frame (reference src/common.cpp:84-118);
+* per-video h5 file `<outdir>[_p{s}|_m{s}].h5` holding float32 datasets
+  `/flow_x_%05d` / `/flow_y_%05d` with the same infix
+  (reference src/common.cpp:120-150, src/denseflow_gpu.cpp:223-242);
 * `.done/<class?>/<stem>` resume markers
   (reference src/denseflow_gpu.cpp:456-470, tools/denseflow.cpp:63-76).
 
-The png and h5 writers are not ported yet (ROADMAP.md A6).
+cv2 encodes here, one image at a time; the native emitter (native/) writes
+the same names from a worker pool where it is built.
 """
 
 from __future__ import annotations
@@ -22,6 +26,13 @@ from typing import Sequence, Tuple
 
 import cv2
 import numpy as np
+
+try:
+    import h5py
+
+    HAVE_H5 = True
+except ImportError:  # pragma: no cover
+    HAVE_H5 = False
 
 
 def _step_infix(step: int) -> str:
@@ -37,6 +48,11 @@ def flow_file_name(prefix: str, step: int, index: int, ext: str = "jpg") -> str:
 
     `index` is the final frame index (caller applies the `base` offset)."""
     return f"{prefix}{_step_infix(step)}_{index:05d}.{ext}"
+
+
+def h5_file_name(output_dir: str, step: int) -> str:
+    """Per-video h5 path: `<outdir>[_p{s}|_m{s}].h5` (sibling of outdir)."""
+    return str(output_dir) + _step_infix(step) + ".h5"
 
 
 def step_base(step: int) -> int:
@@ -63,11 +79,54 @@ def write_flow_images(
             f.write(data)
 
 
+def write_flow_images_png(
+    images: Sequence[bytes], name_prefix: str, step: int, start: int
+) -> None:
+    write_flow_images(images, name_prefix, step, start, ext="png")
+
+
 def encode_jpg(img: np.ndarray) -> bytes:
     ok, buf = cv2.imencode(".jpg", img)
     if not ok:
         raise RuntimeError("jpg encode failed")
     return buf.tobytes()
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    ok, buf = cv2.imencode(".png", img)
+    if not ok:
+        raise RuntimeError("png encode failed")
+    return buf.tobytes()
+
+
+def create_h5_file(output_dir: str, step: int) -> str:
+    """Create (truncate) the per-video h5 upfront, as the reference does
+    (reference src/denseflow_gpu.cpp:223-242) — makes partial files
+    self-healing on rerun."""
+    if not HAVE_H5:
+        raise RuntimeError("HDF5 support is not available")
+    path = h5_file_name(output_dir, step)
+    with h5py.File(path, "w"):
+        pass
+    return path
+
+
+def write_hdf5(
+    planes: Sequence[np.ndarray], output_dir: str, phase: str, step: int, start: int
+) -> None:
+    """Append float32 2-D datasets `/<phase><infix>_%05d` to the video's h5;
+    a name already there is deleted first."""
+    if not HAVE_H5:
+        raise RuntimeError("HDF5 support is not available")
+    path = h5_file_name(output_dir, step)
+    base = step_base(step)
+    infix = _step_infix(step)
+    with h5py.File(path, "a") as f:
+        for i, plane in enumerate(planes):
+            name = f"{phase}{infix}_{start + i + base:05d}"
+            if name in f:
+                del f[name]
+            f.create_dataset(name, data=np.asarray(plane, dtype=np.float32))
 
 
 def done_paths(

@@ -13,9 +13,10 @@ by design:
   single try/catch (reference tools/denseflow.cpp:93-96);
 * counters and the final summary line are preserved verbatim.
 
-The port of the JAX package's `denseflow_tpu/pipeline.py` for the jpg save
-type. Frames are encoded with cv2 on the writer thread; the JAX package's
-native C++ emitter is not ported yet (ROADMAP.md A7).
+The port of the JAX package's `denseflow_tpu/pipeline.py`. The writer
+stage encodes jpg and png through the native emitter (native/, a worker pool
+of libjpeg/libpng encoders) when it is built and through cv2 otherwise,
+with the same file names either way, and writes h5 through h5py.
 """
 
 from __future__ import annotations
@@ -28,10 +29,21 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
 
+from denseflow_tpu_torch import native
 from denseflow_tpu_torch.config import FlowConfig
 from denseflow_tpu_torch.executor import get_executor
 from denseflow_tpu_torch.io.reader import EmptyFolderError, Job, open_source
-from denseflow_tpu_torch.io.writer import encode_jpg, mark_done, write_flow_images
+from denseflow_tpu_torch.io.writer import (
+    create_h5_file,
+    encode_jpg,
+    encode_png,
+    flow_file_name,
+    mark_done,
+    step_base,
+    write_flow_images,
+    write_flow_images_png,
+    write_hdf5,
+)
 from denseflow_tpu_torch.utils import Counters, StageTimers, VerboseLog
 
 QUEUE_DEPTH = 3  # the reference's frames_gray_maxsize / flows_maxsize
@@ -50,7 +62,7 @@ class _ChunkItem:
 
 @dataclass
 class _FlowItem:
-    payload: object  # (qx, qy) uint8 planes
+    payload: object  # (qx, qy) | png u8 | f32 flow, per save_type
     output_dir: str
     base_start: int
     last_buffer: bool
@@ -75,6 +87,11 @@ class Pipeline:
         self._frames_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         self._flows_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         self._abort = threading.Event()
+        # the jpg/png writer, chosen once: the native emitter where it is
+        # built, else cv2 (the same file names either way)
+        self._native = native if cfg.save_type != "h5" and native.available() else None
+        self.writer = "h5py" if cfg.save_type == "h5" else native.describe()
+        self.log(f"writer: {self.writer}")
 
     # ---------------- stage 1: decode ----------------
     def _decode_pool_size(self) -> int:
@@ -132,6 +149,8 @@ class Pipeline:
     def _load_one_video(self, job: Job) -> None:
         cfg = self.cfg
         try:
+            if cfg.save_type == "h5":
+                create_h5_file(job.output_dir, cfg.step)
             src = open_source(job.video_path, cfg)
             # inside the guard: a corrupt container can make .size raise,
             # and an unguarded raise here would escape the decode worker
@@ -188,7 +207,7 @@ class Pipeline:
         return get_executor(
             cfg.algorithm, height, width, cfg.step, cfg.bound,
             cfg.pair_batch, cfg.preset, max_disp, cfg.width_bucket,
-            cfg.device,
+            cfg.device, cfg.save_type, cfg.h5_dtype == "f16",
         )
 
     # Chunks dispatched to the device but not yet collected. 2 keeps the
@@ -334,20 +353,43 @@ class Pipeline:
     def _write_item(self, item: _FlowItem) -> None:
         cfg = self.cfg
         if item.payload is not None:
-            qx, qy = item.payload
-            imgs_x = [encode_jpg(qx[i]) for i in range(qx.shape[0])]
-            imgs_y = [encode_jpg(qy[i]) for i in range(qy.shape[0])]
-            write_flow_images(
-                imgs_x, f"{item.output_dir}/flow_x", cfg.step, item.base_start
-            )
-            write_flow_images(
-                imgs_y, f"{item.output_dir}/flow_y", cfg.step, item.base_start
-            )
+            if cfg.save_type == "jpg":
+                for prefix, planes in zip(("flow_x", "flow_y"), item.payload):
+                    self._write_images(item, prefix, planes, "jpg")
+            elif cfg.save_type == "png":
+                self._write_images(item, "flow", item.payload, "png")
+            else:
+                flow = item.payload
+                for c, phase in enumerate(("flow_x", "flow_y")):
+                    write_hdf5(
+                        [flow[i, :, :, c] for i in range(flow.shape[0])],
+                        item.output_dir, phase, cfg.step, item.base_start,
+                    )
         if self.is_record and item.last_buffer:
             mark_done(item.output_dir, cfg.has_class)
             out = Path(item.output_dir)
             title = f"{out.parent.name}/{out.name}" if cfg.has_class else out.name
             print(f"done video {title}", flush=True)
+
+    def _write_images(self, item: _FlowItem, prefix: str, images, ext: str) -> None:
+        """Encode and write one image per pair: gray jpg planes (m, H, W) or
+        BGR png planes (m, H, W, 3), named `<prefix><infix>_%05d.<ext>`."""
+        cfg = self.cfg
+        if self._native is not None:
+            base = item.base_start + step_base(cfg.step)
+            paths = [
+                f"{item.output_dir}/{flow_file_name(prefix, cfg.step, base + i, ext)}"
+                for i in range(images.shape[0])
+            ]
+            if ext == "jpg":
+                self._native.write_jpg_batch(images, paths)
+            else:
+                self._native.write_png_batch(images, paths)
+            return
+        encode, write = ((encode_jpg, write_flow_images) if ext == "jpg"
+                         else (encode_png, write_flow_images_png))
+        write([encode(im) for im in images], f"{item.output_dir}/{prefix}",
+              cfg.step, item.base_start)
 
     # ---------------- run ----------------
     def _video_error(self, job: Job, e: Exception) -> None:

@@ -132,7 +132,7 @@ def test_step0_extracts_frames_like_jax(vid, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--devices=4", "A10"), ("--devices=3", "A10"), ("-st=png", "A6"), ("-st=h5", "A6"),
+    ("--devices=4", "A10"), ("--devices=3", "A10"),
     ("--devices=2", "A10"), ("--distributed", "A10"),
 ])
 def test_unported_flags_fail_clearly(vid, tmp_path, capsys, flag, item):
@@ -140,6 +140,23 @@ def test_unported_flags_fail_clearly(vid, tmp_path, capsys, flag, item):
     assert main([path, f"-o={tmp_path}", "-s=1", flag, CPU]) == 1
     assert f"ROADMAP.md {item}" in capsys.readouterr().out
     assert not (tmp_path / "v").exists()
+
+
+@pytest.mark.parametrize("flag", ["-st=png", "-st=h5"])
+def test_png_and_h5_flags_run(vid, tmp_path, flag):
+    """The flags that raised before their save types were ported now write
+    the JAX package's files: 8 flow_%05d.png, or v.h5 with 16 datasets."""
+    import h5py
+
+    path, _ = vid
+    assert main([path, f"-o={tmp_path}", "-s=1", "-a=nv", flag, CPU]) == 0
+    if flag == "-st=png":
+        assert sorted(p.name for p in (tmp_path / "v").iterdir()) == \
+            [f"flow_{i:05d}.png" for i in range(8)]
+    else:
+        assert list((tmp_path / "v").iterdir()) == []
+        with h5py.File(tmp_path / "v.h5") as f:
+            assert sorted(f) == sorted(f"flow_{c}_{i:05d}" for c in "xy" for i in range(8))
 
 
 def test_parse_flags_and_help():

@@ -112,10 +112,7 @@ def test_config_defaults_match():
 
 
 @pytest.mark.parametrize("kw,flag,item", [
-    (dict(algorithm="brox", save_type="png", step=1), "-st=png", "A6"),
     (dict(algorithm="brox", devices=2, step=-1), "--devices>1", "A10"),
-    (dict(save_type="png", step=1), "-st=png", "A6"),
-    (dict(save_type="h5", step=2), "-st=h5", "A6"),
     (dict(devices=2), "--devices>1", "A10"),
     (dict(distributed=True), "--distributed", "A10"),
 ])
@@ -124,6 +121,23 @@ def test_unported_features_name_their_roadmap_item(kw, flag, item):
     jcfg.FlowConfig(input="x", **kw).validate()
     with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md {item}"):
         tcfg.FlowConfig(input="x", **kw).validate()
+
+
+def test_only_multi_device_features_stay_unported():
+    assert set(tcfg.UNPORTED) == {"devices", "distributed"}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(algorithm="brox", save_type="png", step=1),
+    dict(save_type="png", step=1),
+    dict(save_type="h5", step=2),
+    dict(algorithm="farn", save_type="h5", h5_dtype="f16", step=-1),
+])
+def test_png_and_h5_validate_as_in_jax(kw):
+    """-st=png and -st=h5 are ported: accepted wherever the JAX package
+    accepts them."""
+    for cfg in (jcfg, tcfg):
+        cfg.FlowConfig(input="x", **kw).validate()
 
 
 @pytest.mark.parametrize("step", [1, -1, 2])

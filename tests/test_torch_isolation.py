@@ -34,6 +34,7 @@ def test_every_module_imports_without_jax():
     assert "denseflow_tpu_torch.kernels.brox_fused" in mods
     assert "denseflow_tpu_torch.kernels._cluster" in mods
     assert "denseflow_tpu_torch.algorithms.brox" in mods
+    assert "denseflow_tpu_torch.native" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -65,6 +66,21 @@ _IMPORT = re.compile(
 def test_source_imports_no_jax(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.findall(text), f"{path} imports jax or denseflow_tpu"
+
+
+@pytest.mark.parametrize("name", ["emitter", "tvl1_scale", "farneback_polyexp",
+                                  "farneback_level", "brox_scale"])
+def test_native_sources_lie_inside_the_port(name):
+    """Every library the port builds, the emitter included, compiles a
+    source (and headers) of the port's own, never one of denseflow_tpu/,
+    into build/denseflow_tpu_torch/."""
+    from denseflow_tpu_torch.kernels import _build
+
+    r = _build.recipe(name)
+    for p in (r.source, *r.headers):
+        assert p.is_file() and p.resolve().is_relative_to(PKG), p
+    assert _build.BUILD_DIR == ROOT / "build" / "denseflow_tpu_torch"
+    assert _build._target(name, r).parent == _build.BUILD_DIR
 
 
 def _no_card():
