@@ -73,10 +73,24 @@ Phases (each prints its lines; any failure exits non-zero):
     `-st=h5` and `-st=h5 --h5Dtype=f16`: 499 pngs or 998 float32 datasets
     by the JAX package's names, 160 `tvl1_scale` launches each, the centre
     flow (decoded with the port's `dequantize_flow_png`, or read from the
-    h5) within 0.3 px of the content's motion, f16 within 2e-2 px of f32.
+    h5) within 0.3 px of the content's motion, f16 within 2e-2 px of f32;
+15. `--devices`: the tvl1, farn and brox executors on a 64-pair chunk of the
+    bench video at 256x341, jpg and h5, one device against its slabs split
+    over shards: 2 and all cards where there are two or more, else 2 and 4
+    shards on the one card (a check of the split, not a multi-GPU run).
+    jpg bytes must be identical, the h5 flow bit-equal, and each kernel's
+    launches shards x the one-device count; each run's wall time is
+    printed. With two cards or more, also the CLI's `--devices=0` against
+    `--devices=1` on the 500-frame video, file for file;
+16. `--distributed`: two processes of `python -m denseflow_tpu_torch` in
+    one gloo group on 127.0.0.1 (DENSEFLOW_NUM_PROCESSES=2), on the card,
+    over a list of two 100-frame cuts of the bench video: disjoint shards,
+    both `.done` markers, one summary from host 0 with the global counts,
+    and files byte-identical to one process running the list.
 
 Phases 5, 9, 12 and 14 print the writer that ran beside the stage times.
-Each phase prints its wall time.
+Each phase prints its wall time. Every run of the CLI but phase 15's
+passes --devices=1, so the launch counts are one card's on any host.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (each kernel's launches counted on its own path's run) and
@@ -88,6 +102,7 @@ result. It imports neither jax nor denseflow_tpu.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -101,6 +116,9 @@ DEVICE = "cuda"
 N_FRAMES = 500  # frames of the main path's video (bench.py:37)
 CHUNK_FRAMES = 128  # FlowConfig.chunk_frames, the main path's default
 PAIR_BATCH = 16  # FlowConfig.pair_batch, the main path's default
+# the CLI's runs stay on the first card, where --devices=0 would split each
+# slab over every card there is; phase 15 holds the multi-card split
+ONE_CARD = "--devices=1"
 GATE = 0.5  # px, mean EPE (tests/test_fidelity.py)
 KERNEL_TOL = 1e-3  # px, mean |du| of the kernel vs its plain version
 POLY_TOL = 1e-3  # max |d| of the poly_expand coefficients vs the plain version
@@ -203,22 +221,23 @@ def tvl1_bound_ms(counts, h: int, w: int):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
 
 
-def make_bench_video(path: Path, n_frames: int) -> None:
+def make_bench_video(path: Path, n_frames: int, first: int = 0) -> None:
     """The bench video recipe (bench.py:41-59): 360x480 MJPG whose content
-    moves -2 px per frame horizontally."""
+    moves -2 px per frame horizontally; frames first .. first + n_frames - 1
+    of its N_FRAMES."""
     import cv2
     import scipy.ndimage as ndi
 
     h_src, w_src = 360, 480
     rng = np.random.default_rng(0)
-    pad = 2 * n_frames + 8
+    pad = 2 * N_FRAMES + 8
     base = ndi.gaussian_filter(
         rng.uniform(0, 255, (h_src + 16, w_src + pad)), 2.0
     ).astype(np.float32)
     vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 25, (w_src, h_src))
     if not vw.isOpened():
         raise RuntimeError("cannot open the video writer")
-    for t in range(n_frames):
+    for t in range(first, first + n_frames):
         fr = np.clip(base[8:8 + h_src, 4 + 2 * t:4 + 2 * t + w_src], 0, 255)
         vw.write(cv2.cvtColor(fr.astype(np.uint8), cv2.COLOR_GRAY2BGR))
     vw.release()
@@ -270,18 +289,23 @@ def _compare(name, args, kw, same_counts=False, plain=None):
     return k, r, max_d
 
 
-def main_path_slab(video: Path):
-    """The main path's first slab: PAIR_BATCH pairs of step 1, decoded and
-    resized to short side 256 by the port's reader as the CLI does it."""
+def first_chunk(video: Path, n_frames: int) -> np.ndarray:
+    """The video's first n_frames, decoded and resized to short side 256 by
+    the port's reader as the CLI does it."""
     from denseflow_tpu_torch.config import FlowConfig
     from denseflow_tpu_torch.io.reader import VideoSource
 
-    cfg = FlowConfig(input=str(video), new_short=256, chunk_frames=PAIR_BATCH + 1)
+    cfg = FlowConfig(input=str(video), new_short=256, chunk_frames=n_frames)
     src = VideoSource(str(video), cfg)
     try:
-        frames = next(src.chunks(1)).frames
+        return next(src.chunks(1)).frames
     finally:
         src.close()
+
+
+def main_path_slab(video: Path):
+    """The main path's first slab: PAIR_BATCH pairs of step 1."""
+    frames = first_chunk(video, PAIR_BATCH + 1)
     return frames[:PAIR_BATCH], frames[1:PAIR_BATCH + 1]
 
 
@@ -473,7 +497,7 @@ def phase_main_path(video: Path, work: Path, card: str, algorithm: str,
     out_root = work / f"out_{algorithm}"
     cfg = parse_args([str(video), f"-o={out_root}", f"-a={algorithm}", "-s=1",
                       "-b=20", "-st=jpg", "-ns=256", "--strict",
-                      f"--device={DEVICE}"])
+                      f"--device={DEVICE}", ONE_CARD])
     stats: dict = {}
     for fn in kernels.values():
         fn.launches = 0
@@ -538,7 +562,7 @@ def phase_escalation(work: Path) -> None:
         vw.write(cv2.cvtColor(fr, cv2.COLOR_GRAY2BGR))
     vw.release()
     cfg = parse_args([str(video), f"-o={work / 'fast_out'}", "-s=1", "-b=56",
-                      "--strict", "-v", f"--device={DEVICE}"])
+                      "--strict", "-v", f"--device={DEVICE}", ONE_CARD])
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         rc = run(cfg)
@@ -1278,7 +1302,7 @@ def phase_save_types(video: Path, work: Path, card: str, tvl1_scale) -> None:
         out_root = work / f"out_{st}{len(extra)}"
         cfg = parse_args([str(video), f"-o={out_root}", "-a=tvl1", "-s=1", "-b=20",
                           f"-st={st}", "-ns=256", "--strict", f"--device={DEVICE}",
-                          *extra])
+                          ONE_CARD, *extra])
         stats: dict = {}
         tvl1_scale.launches = 0
         if st == "h5" and not writer.HAVE_H5:
@@ -1344,6 +1368,178 @@ def phase_save_types(video: Path, work: Path, card: str, tvl1_scale) -> None:
             raise SystemExit(f"{tag} decoded flow does not match the content's motion")
         shutil.rmtree(out_root)
 
+# ---------------- devices and hosts ----------------
+
+SHARD_PAIRS = 64  # pairs of phase 15's chunk: four main-path slabs
+# each kernel's launches a slab of PAIR_BATCH pairs, by path
+PER_SLAB = {"tvl1": {"tvl1_scale": 5},
+            "farn": {"poly_expand": 1, "farneback_level": 6},
+            "brox": {"brox_scale": 13}}
+SUBPROCESS_TIMEOUT = 300  # s, phase 16's two hosts
+
+
+def phase_devices(video: Path, work: Path, card: str, kernels: dict) -> None:
+    """--devices: each path's executor on a SHARD_PAIRS-pair chunk of the
+    bench video at 256x341, one device against its slabs split over shards:
+    the cards there are (2 and all) or, on one card, 2 and 4 shards on that
+    card. jpg bytes and the h5 flow must equal one device's, and each
+    kernel's launches shards x its count a slab. With two cards or more,
+    also the CLI with --devices=0 against --devices=1 on the 500-frame
+    video."""
+    import torch
+
+    import denseflow_tpu_torch.executor as tex
+    from denseflow_tpu_torch.cli import parse_args, run
+    from denseflow_tpu_torch.io.writer import encode_jpg
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        layouts = [(n, None, f"{n} cards") for n in sorted({2, n_cards})]
+    else:
+        # shards on one card: a check of the split, not a multi-GPU run
+        layouts = [(n, [torch.device(DEVICE, 0)] * n, f"{n} shards on one card")
+                   for n in (2, 4)]
+    frames = first_chunk(video, SHARD_PAIRS + 1)
+    h, w = frames.shape[1:]
+    slabs = SHARD_PAIRS // PAIR_BATCH
+    local = tex.local_devices
+
+    def go(alg, st, n, devs):
+        """(payload, launches, wall s, devices) of a warmed-up run_chunk."""
+        if devs is not None:
+            tex.local_devices = lambda name: devs
+        try:
+            ex = tex.DeviceExecutor(alg, h, w, 1, 20, PAIR_BATCH, device=DEVICE,
+                                    save_type=st, n_devices=n)
+        finally:
+            tex.local_devices = local
+        ex.run_chunk(frames, len(frames))
+        for k in PER_SLAB[alg]:
+            kernels[k].launches = 0
+        t0 = time.perf_counter()
+        out = ex.run_chunk(frames, len(frames))
+        wall = time.perf_counter() - t0
+        return out, {k: kernels[k].launches for k in PER_SLAB[alg]}, wall, ex.devices
+
+    for alg, per_slab in PER_SLAB.items():
+        for st in ("jpg", "h5"):
+            base, base_n, wall, devs = go(alg, st, 1, None)
+            tag = f"[devices {alg} {st}]"
+            log(f"{tag} 1 device ({devs[0]}): {SHARD_PAIRS} pairs at {h}x{w} in "
+                f"{wall:.6g} s; launches {base_n}; {card}")
+            if base_n != {k: v * slabs for k, v in per_slab.items()}:
+                raise SystemExit(f"{tag} one device launched {base_n}")
+            if st == "jpg":
+                base_jpg = [encode_jpg(p) for planes in base for p in planes]
+            for n, devs_in, label in layouts:
+                out, n_l, wall, devs = go(alg, st, n if devs_in is None else 0, devs_in)
+                if st == "jpg":
+                    same = [encode_jpg(p) for planes in out for p in planes] == base_jpg
+                    what = f"{len(base_jpg)} jpgs byte-identical"
+                else:
+                    same = bool(np.array_equal(out, base))
+                    d = float(np.abs(out - base).max())
+                    what = f"flow bit-equal (max |d| {d:.3g} px)"
+                log(f"{tag} {label} ({', '.join(map(str, devs))}): {wall:.6g} s; "
+                    f"{what}: {same}; launches {n_l}; {card}")
+                if not same:
+                    raise SystemExit(f"{tag} {label} differ from one device")
+                if n_l != {k: n * v for k, v in base_n.items()}:
+                    raise SystemExit(f"{tag} {label} launched {n_l}, not {n} x {base_n}")
+    if n_cards < 2:
+        log("[devices] one card: no multi-GPU run here; the CLI's --devices=0 "
+            "against --devices=1 needs two")
+        return
+    files = {}
+    for flag in (1, 0):
+        out_root = work / f"out_devices{flag}"
+        cfg = parse_args([str(video), f"-o={out_root}", "-a=tvl1", "-s=1", "-b=20",
+                          "-st=jpg", "-ns=256", "--strict", f"--device={DEVICE}",
+                          f"--devices={flag}"])
+        stats: dict = {}
+        if run(cfg, stats_out=stats) != 0 or stats["errors"]:
+            raise SystemExit(f"--devices={flag} failed: {stats.get('errors')}")
+        n_flows = stats["counters"].total_flows
+        log(f"[devices cli] --devices={flag} on {stats['devices']}: {n_flows} flows in "
+            f"{stats['wall_s']:.6g} s = {n_flows / stats['wall_s']:.6g} flows/s; stage "
+            f"times " + ", ".join(f"{k} {v:.6g} s" for k, v in sorted(stats["stage_times"].items()))
+            + f"; {card}")
+        files[flag] = {p.name: p.read_bytes() for p in sorted((out_root / video.stem).iterdir())}
+        shutil.rmtree(out_root)
+    log(f"[devices cli] --devices=0 wrote {len(files[0])} files, byte-identical to "
+        f"--devices=1: {files[0] == files[1]}")
+    if len(files[1]) != 2 * (N_FRAMES - 1) or files[0] != files[1]:
+        raise SystemExit("--devices=0 wrote other files than --devices=1")
+
+
+def phase_distributed(work: Path, card: str) -> None:
+    """--distributed: two processes of `python -m denseflow_tpu_torch` in one
+    gloo group on 127.0.0.1 (DENSEFLOW_NUM_PROCESSES=2), on the card, over a
+    list of two 100-frame cuts of the bench video: disjoint shards, both
+    .done markers, one summary from host 0 with the global counts, and the
+    files of one process running the whole list."""
+    import socket
+
+    from denseflow_tpu_torch.cli import parse_args, run
+
+    cuts = [work / f"cut{i}.avi" for i in range(2)]
+    for i, cut in enumerate(cuts):
+        make_bench_video(cut, 100, first=100 * i)
+    lst = work / "cuts.txt"
+    lst.write_text("".join(f"{c}\n" for c in cuts))
+    flags = ["-s=1", "-b=20", "-st=jpg", "-ns=256", f"--device={DEVICE}", ONE_CARD]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    topology = ("DENSEFLOW_NUM_PROCESSES", "DENSEFLOW_PROCESS_ID", "WORLD_SIZE",
+                "RANK", "MASTER_ADDR", "MASTER_PORT")
+    # gloo's sockets on the loopback too, beside the coordinator
+    env = dict({k: v for k, v in os.environ.items() if k not in topology},
+               GLOO_SOCKET_IFNAME="lo")
+    cmd = [sys.executable, "-m", "denseflow_tpu_torch", str(lst), f"-o={work / 'dist'}",
+           *flags, "-v", "--distributed", f"--coordinator=127.0.0.1:{port}"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=dict(env, DENSEFLOW_NUM_PROCESSES="2",
+                                                  DENSEFLOW_PROCESS_ID=str(r)))
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=SUBPROCESS_TIMEOUT) for p in procs]
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"--distributed hosts ran past {SUBPROCESS_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"--distributed host {r} failed: rc {p.returncode}\n"
+                             f"{out[-1500:]}\n{err[-1500:]}")
+    summaries = [[ln for ln in out.splitlines() if "flows) processed" in ln]
+                 for out, _ in outs]
+    owns = [[c.stem for c in cuts if f"{c}, frames" in out] for out, _ in outs]
+    log(f"[distributed] 2 hosts in {wall:.6g} s (process start included): host 0 "
+        f"took {owns[0]}, host 1 {owns[1]}; host 0: {summaries[0]}; host 1 printed "
+        f"{len(summaries[1])} summaries; {card}")
+    stats: dict = {}
+    rc = run(parse_args([str(lst), f"-o={work / 'single'}", *flags]), stats_out=stats)
+    one = {str(f.relative_to(work / "single")): f.read_bytes()
+           for f in sorted((work / "single").rglob("*.jpg"))}
+    two = {str(f.relative_to(work / "dist")): f.read_bytes()
+           for f in sorted((work / "dist").rglob("*.jpg"))}
+    done = [(work / "dist" / ".done" / c.stem).is_file() for c in cuts]
+    log(f"[distributed] one process: rc {rc}, {len(one)} jpgs in {stats['wall_s']:.6g} s; "
+        f"the two hosts' {len(two)} jpgs byte-identical: {two == one}; .done {done}")
+    if owns != [["cut0"], ["cut1"]]:
+        raise SystemExit("the hosts' shards are not cut0 / cut1")
+    if not (len(summaries[0]) == 1 and "2 videos (200 frames, 198 tvl1 flows)"
+            in summaries[0][0] and not summaries[1]):
+        raise SystemExit("the global summary is not host 0's alone")
+    if rc != 0 or not all(done) or len(one) != 4 * 99 or two != one:
+        raise SystemExit("two hosts wrote other files than one process")
+
 
 def timed(n: int, fn, *args):
     """fn(*args), then phase n's wall time."""
@@ -1393,10 +1589,13 @@ def main() -> int:
         make_bench_video(video, N_FRAMES)
         log(f"[video] made {N_FRAMES}-frame 360x480 MJPG in "
             f"{time.perf_counter() - t0:.3g} s")
-        records = timed(3, phase_kernels, video, card)
+        kernels = {"tvl1_scale": tvl1_scale, "poly_expand": poly_expand,
+                   "farneback_level": farneback_level, "brox_scale": brox_scale}
+        records, launches = [], {}
+        records += timed(3, phase_kernels, video, card)
         timed(4, phase_fidelity)
-        launches = timed(5, phase_main_path, video, work, card, "tvl1",
-                         {"tvl1_scale": tvl1_scale})
+        launches.update(timed(5, phase_main_path, video, work, card, "tvl1",
+                              {"tvl1_scale": tvl1_scale}))
         timed(6, phase_escalation, work)
         records += timed(7, phase_farn_kernels, video, card)
         timed(8, phase_farn_fidelity)
@@ -1411,6 +1610,8 @@ def main() -> int:
                               {"brox_scale": brox_scale}))
         timed(13, phase_emitter, work, card)
         timed(14, phase_save_types, video, work, card, tvl1_scale)
+        timed(15, phase_devices, video, work, card, kernels)
+        timed(16, phase_distributed, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for r in records:

@@ -7,9 +7,9 @@ including OpenCV CommandLineParser's `-key=value` syntax:
               [-ns=0] [-cf] [-if] [-st=jpg] [-f] [-v]
 
 plus extensions: --pairBatch, --chunkFrames, --strict,
---hostId/--numHosts (video-list sharding across hosts), --preset, --device.
-The port of the JAX package's `denseflow_tpu/cli.py`: the same flags and
-help; the flags whose features are not ported yet raise (config.UNPORTED).
+--hostId/--numHosts (video-list sharding across hosts), --distributed,
+--devices, --preset, --device. The port of the JAX package's
+`denseflow_tpu/cli.py`: the same flags and help.
 
     python -m denseflow_tpu_torch <video> -a=tvl1 -s=1 -b=20 -st=jpg -ns=256
 """
@@ -24,6 +24,11 @@ from denseflow_tpu_torch import native
 from denseflow_tpu_torch.config import FlowConfig
 from denseflow_tpu_torch.extract_frames import extract_frames_only
 from denseflow_tpu_torch.io.reader import expand_jobs
+from denseflow_tpu_torch.parallel.distributed import (
+    allreduce_counters,
+    init_distributed,
+    shutdown_distributed,
+)
 from denseflow_tpu_torch.pipeline import Pipeline
 from denseflow_tpu_torch.utils import (
     Counters,
@@ -72,11 +77,21 @@ Extensions:
                                (0 = auto, 1 = serial like the reference)
     --strict                   abort the whole run on the first bad video
     --hostId / --numHosts      shard a videolist across hosts (manual)
-    --distributed              not ported yet (ROADMAP.md A10)
-    --coordinator=HOST:PORT    with --distributed (not ported yet)
+    --distributed              join a torch.distributed group (gloo): host
+                               id / count come from DENSEFLOW_NUM_PROCESSES
+                               and DENSEFLOW_PROCESS_ID with --coordinator,
+                               or from torchrun (WORLD_SIZE, RANK,
+                               MASTER_ADDR, MASTER_PORT); the videolist is
+                               sharded automatically, and host 0 prints the
+                               global summary (one counter all-reduce)
+    --coordinator=HOST:PORT    host 0's address for --distributed with
+                               DENSEFLOW_NUM_PROCESSES
     --preset (value:)          solver preset: default / fast / quality
-    --devices (value:0)        GPUs to spread pair batches over; 0 or 1
-                               (the first card), more not ported yet
+    --devices (value:0)        local GPUs to split each pair batch over
+                               (0 = all local devices); more than one is
+                               not faster yet (one host thread enqueues
+                               every card's sub-slabs): --devices=1 keeps
+                               one card's speed
     --profile=DIR              capture a torch.profiler trace into DIR
     --wirePack (value:1)       accepted, no effect: the payload crosses to
                                the host as it is, and the codecs of
@@ -171,15 +186,31 @@ def parse_args(argv: List[str]) -> Optional[FlowConfig]:
 
 def run(cfg: FlowConfig, stats_out: "dict | None" = None) -> int:
     """Execute a parsed config. stats_out (optional) receives run
-    telemetry: per-stage wall times, counters, wall seconds and the writer
-    that ran ("native, k threads", "cv2: <why>" or "h5py"), so a caller
-    can attribute the headline number to stages without parsing stdout."""
+    telemetry: per-stage wall times, counters, wall seconds, the writer
+    that ran ("native, k threads", "cv2: <why>" or "h5py") and the devices
+    the pairs were split over, so a caller can attribute the headline
+    number to stages without parsing stdout."""
     cfg.validate()
     if cfg.step != 0:
         resolve_device(cfg.device)  # no card for "cuda": raise before work
+    if not cfg.distributed:
+        return _run(cfg, stats_out)
+    cfg.host_id, cfg.num_hosts = init_distributed(
+        coordinator_address=cfg.coordinator or None
+    )
+    try:
+        return _run(cfg, stats_out)
+    finally:
+        shutdown_distributed()
+
+
+def _run(cfg: FlowConfig, stats_out: "dict | None") -> int:
+    """`run` after validation and, with --distributed, inside the group."""
     jobs, is_record = expand_jobs(cfg)
-    if not jobs:
+    if not jobs and not cfg.distributed:
         return 0
+    # distributed: a host with an empty shard must still run to the final
+    # counter all-reduce — every host takes part in the collective
     cfg.validate_paths([j.video_path for j in jobs], [j.output_dir for j in jobs])
 
     prof = _start_profile(cfg) if cfg.profile_dir else None
@@ -192,10 +223,12 @@ def run(cfg: FlowConfig, stats_out: "dict | None" = None) -> int:
             counters = Counters()
             extract_frames_only(cfg, jobs, counters)
             errors: list = []
+            devices: list = []
         else:
             pipe = Pipeline(cfg, jobs, is_record)
             pipe.launch()
             writer = pipe.writer
+            devices = [str(d) for d in pipe.devices]
             counters = pipe.counters
             errors = pipe.errors
             if cfg.verbose and pipe.timers.totals:
@@ -211,12 +244,20 @@ def run(cfg: FlowConfig, stats_out: "dict | None" = None) -> int:
         stats_out["wall_s"] = end_t - start_t
         stats_out["errors"] = list(errors)
         stats_out["writer"] = writer
+        stats_out["devices"] = devices
     n_videos, n_frames, n_flows = len(jobs), counters.total_frames, counters.total_flows
-    print(
-        format_summary(
-            n_videos, n_frames, n_flows, cfg.algorithm, end_t - start_t
+    print_it = True
+    if cfg.distributed:
+        n_videos, n_frames, n_flows = allreduce_counters(counters)
+        # the global summary once, from host 0 — and like the reference,
+        # nothing prints when nothing ran anywhere (all videos .done)
+        print_it = cfg.host_id == 0 and (n_videos > 0 or not is_record)
+    if print_it:
+        print(
+            format_summary(
+                n_videos, n_frames, n_flows, cfg.algorithm, end_t - start_t
+            )
         )
-    )
     if errors:
         print(f"{len(errors)} video(s) failed:", file=sys.stderr)
         for e in errors:

@@ -1,11 +1,11 @@
 """Device executor: turns decoded frame chunks into the save type's payload.
 
-The port of the JAX package's `denseflow_tpu/executor.py` for one CUDA
-device:
+The port of the JAX package's `denseflow_tpu/executor.py` for one or more
+CUDA devices:
 
-* the chunk's frames cross to the device **once**, from pinned host memory
-  on a copy stream, started by the decode stage so the copy of chunk i+1
-  overlaps the solve of chunk i;
+* the chunk's frames cross to each device **once**, from one pinned host
+  buffer on the device's copy stream, started by the decode stage so the
+  copy of chunk i+1 overlaps the solve of chunk i;
 * pairs are sliced out of the resident chunk in slabs of `pair_batch`
   (a = step>0 ? i : i-step, b = step>0 ? i+step : i, flow a -> b, reference
   src/denseflow_gpu.cpp:315-316); each slab is solved, checked for clamp
@@ -13,12 +13,21 @@ device:
   planes for jpg, the adaptive-bound 3-channel planes for png, the raw
   float32 flow for h5 (float16 with `--h5Dtype=f16`, widened back to
   float32 on the host);
+* with more than one device, every slab is split into equal contiguous
+  sub-slabs, one a device: the JAX package's shard_map split without
+  shard_map (the slab rounds up to a multiple of the device count; pairs
+  share nothing, reference src/denseflow_gpu.cpp:313-341). Each device
+  has its own copy of the chunk, streams and solver; one host thread
+  enqueues them all, each under its device, so the kernels' launch counts
+  stay single-threaded. The solvers treat each pair alone, so the bytes
+  are those of one device;
 * chunk pair counts are bucketed to pair_batch * 2^k, padded pairs repeat
   the last frame and are dropped on the host; widths may be bucketed with
   edge-replicated columns that are cropped back on the host;
-* the payload is copied to pinned host memory on the compute stream and an
-  event marks its arrival, so the pipeline dispatches chunk i+1 before it
-  waits for chunk i.
+* each sub-slab's payload is copied to pinned host memory at its global
+  pair offset on its device's compute stream, and an event a device marks
+  the arrival, so the pipeline dispatches chunk i+1 before it waits for
+  chunk i, and the host reads global pair order as it is.
 
 The payload crosses as it is: the JAX package's wire codecs exist for a
 remote-device link and are lossless (the uint8 codec and the h5 path's
@@ -39,33 +48,54 @@ import torch
 
 from denseflow_tpu_torch.algorithms import make_solver
 from denseflow_tpu_torch.quantize import quantize_flow_pair, quantize_flow_png
-from denseflow_tpu_torch.utils import resolve_device
+from denseflow_tpu_torch.utils import local_devices
 
 
 @dataclass
 class ResidentChunk:
-    """A chunk's frames on the device and the event that marks the end of
-    their copy (None on the CPU)."""
+    """A chunk's frames on each shard's device and the events that mark the
+    end of their copies (None on the CPU)."""
 
-    frames: torch.Tensor  # (N', H, W) uint8, padded
-    ready: "torch.cuda.Event | None"
+    frames: List[torch.Tensor]  # a shard: (N', H, W) uint8, padded
+    ready: List["torch.cuda.Event | None"]
 
 
 @dataclass
 class _Dispatched:
     q: torch.Tensor  # the chunk's payload (see _solve_q), host (pinned on CUDA)
     sat: torch.Tensor  # (mb,) float32, host
-    done: "torch.cuda.Event | None"
+    done: List["torch.cuda.Event"]  # one a shard on CUDA, none on the CPU
     m: int  # real pairs
 
     def wait(self) -> None:
-        if self.done is not None:
-            self.done.synchronize()
+        for e in self.done:
+            e.synchronize()
+
+
+class _Shard:
+    """One device's part of the executor: its solver and, on a card, its
+    copy and compute streams."""
+
+    def __init__(self, device: torch.device, solver) -> None:
+        self.device = device
+        self.solver = solver
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.copy_stream = torch.cuda.Stream(device)
+            self.stream = torch.cuda.Stream(device)
+
+    def on(self, stream_name: str):
+        """The shard's device and its stream `stream_name` made current."""
+        stack = contextlib.ExitStack()
+        if self.cuda:
+            stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.cuda.stream(getattr(self, stream_name)))
+        return stack
 
 
 class DeviceExecutor:
     """Per-(video geometry, algorithm, save type) solve + payload step on
-    one device."""
+    one or more devices."""
 
     def __init__(
         self,
@@ -81,6 +111,7 @@ class DeviceExecutor:
         device: str = "cuda",
         save_type: str = "jpg",
         h5_f16: bool = False,
+        n_devices: int = 0,
     ) -> None:
         self.height = height
         self.w_real = width
@@ -93,25 +124,26 @@ class DeviceExecutor:
         # h5 only: downcast the flow to f16 on the device before the copy
         # (config.h5_dtype); disk datasets stay float32
         self.h5_f16 = bool(h5_f16) and save_type == "h5"
-        self.device = resolve_device(device)
-        self.B = pair_batch
+        # the first n_devices local devices, all of them for 0 (fewer where
+        # fewer exist, as the JAX package takes them)
+        devs = local_devices(device)
+        self.devices = devs[:n_devices] if n_devices > 0 else devs
+        self.n_dev = len(self.devices)
+        # pair-batch slab: a multiple of the device count so every device
+        # gets an equal share of every slab
+        self.B = -(-pair_batch // self.n_dev) * self.n_dev
+        self.b_loc = self.B // self.n_dev
         self.astep = abs(step)
         # the solver's effective displacement clamp (for the saturation
         # signal that drives auto-escalation — pipeline.py)
         self.max_disp_eff = max_disp if max_disp > 0 else 40
-        self._solver = make_solver(
-            algorithm, height, width, preset, max_disp, str(self.device)
-        )
+        self._shards = [
+            _Shard(d, make_solver(algorithm, height, width, preset, max_disp, str(d)))
+            for d in self.devices
+        ]
+        self._cuda = self._shards[0].cuda
         self._off_a = 0 if step > 0 else self.astep
         self._off_b = step if step > 0 else 0
-        if self.device.type == "cuda":
-            self._copy_stream = torch.cuda.Stream(self.device)
-            self._stream = torch.cuda.Stream(self.device)
-
-    def _on(self, stream_name: str):
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        return torch.cuda.stream(getattr(self, stream_name))
 
     # ---------------- shape bucketing ----------------
     def _bucket(self, n: int) -> int:
@@ -128,7 +160,7 @@ class DeviceExecutor:
 
     # ---------------- host <-> device ----------------
     def upload_chunk(self, frames: np.ndarray) -> "ResidentChunk | np.ndarray":
-        """Pad/bucket on the host and start the copy to the device.
+        """Pad/bucket on the host and start the copy to every device.
         A chunk without pairs is returned as it is."""
         n = frames.shape[0]
         if n - self.astep <= 0:
@@ -144,26 +176,28 @@ class DeviceExecutor:
             pad = np.repeat(frames[-1:], n_pad - n, axis=0)
             frames = np.concatenate([frames, pad], axis=0)
         host = torch.from_numpy(np.ascontiguousarray(frames))
-        if self.device.type != "cuda":
-            return ResidentChunk(host, None)
+        if not self._cuda:
+            return ResidentChunk([host] * self.n_dev, [None] * self.n_dev)
         host = host.pin_memory()
-        with self._on("_copy_stream"):
-            dev = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        return ResidentChunk(dev, ready)
+        resident, ready = [], []
+        for sh in self._shards:
+            with sh.on("copy_stream"):
+                resident.append(host.to(sh.device, non_blocking=True))
+                ready.append(torch.cuda.Event())
+                ready[-1].record()
+        return ResidentChunk(resident, ready)
 
-    def _solve_q(self, frames: torch.Tensor, s: int, n_pairs: int):
-        """Solve pairs [s, s+n_pairs) of the resident chunk into the save
-        type's payload — jpg (n, 2, H, W) uint8, png (n, 3, H, W) uint8, h5
-        (n, H, W, 2) float32 or float16 — and the per-pair CLAMP-SATURATION
-        fraction: the share of pixels whose flow sits at the warp's
-        displacement clamp, the signal behind auto-escalation. The png
-        bound is taken over the solved width, padded columns included, as
-        the JAX package does with --widthBucket."""
+    def _solve_q(self, sh: _Shard, frames: torch.Tensor, s: int, n_pairs: int):
+        """Solve pairs [s, s+n_pairs) of the resident chunk on shard `sh`
+        into the save type's payload — jpg (n, 2, H, W) uint8, png (n, 3, H,
+        W) uint8, h5 (n, H, W, 2) float32 or float16 — and the per-pair
+        CLAMP-SATURATION fraction: the share of pixels whose flow sits at
+        the warp's displacement clamp, the signal behind auto-escalation.
+        The png bound is taken over the solved width, padded columns
+        included, as the JAX package does with --widthBucket."""
         I0 = frames[s + self._off_a: s + self._off_a + n_pairs]
         I1 = frames[s + self._off_b: s + self._off_b + n_pairs]
-        flow = self._solver(I0, I1)
+        flow = sh.solver(I0, I1)
         thresh = float(np.float32(0.98 * self.max_disp_eff))
         sat = (flow.abs().amax(dim=-1) >= thresh).to(torch.float32).mean(dim=(-2, -1))
         if self.save_type == "h5":
@@ -183,22 +217,32 @@ class DeviceExecutor:
             return []
         if isinstance(frames, np.ndarray):
             frames = self.upload_chunk(frames)
-        with self._on("_stream"):
-            if frames.ready is not None:
-                torch.cuda.current_stream().wait_event(frames.ready)
-                frames.frames.record_stream(torch.cuda.current_stream())
-            mb = frames.frames.shape[0] - self.astep
-            solved = [self._solve_q(frames.frames, s, self.B) for s in range(0, mb, self.B)]
-            q = torch.cat([a for a, _ in solved])
-            sat = torch.cat([b for _, b in solved])
-            if self.device.type != "cuda":
-                return [_Dispatched(q, sat, None, m)]
-            q_host = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
-            sat_host = torch.empty(sat.shape, dtype=sat.dtype, pin_memory=True)
-            q_host.copy_(q, non_blocking=True)
-            sat_host.copy_(sat, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+        for sh, f, ready in zip(self._shards, frames.frames, frames.ready):
+            if ready is not None:
+                with sh.on("stream"):
+                    torch.cuda.current_stream().wait_event(ready)
+                    f.record_stream(torch.cuda.current_stream())
+        mb = frames.frames[0].shape[0] - self.astep
+        q_host = sat_host = None
+        # slab-major, so every device has work queued after the first slab
+        for s in range(0, mb, self.B):
+            for r, (sh, f) in enumerate(zip(self._shards, frames.frames)):
+                lo = s + r * self.b_loc  # this shard's pairs of the slab
+                with sh.on("stream"):
+                    q, sat = self._solve_q(sh, f, lo, self.b_loc)
+                    if q_host is None:
+                        q_host = torch.empty((mb,) + q.shape[1:], dtype=q.dtype,
+                                             pin_memory=self._cuda)
+                        sat_host = torch.empty((mb,), dtype=sat.dtype,
+                                               pin_memory=self._cuda)
+                    q_host[lo:lo + self.b_loc].copy_(q, non_blocking=self._cuda)
+                    sat_host[lo:lo + self.b_loc].copy_(sat, non_blocking=self._cuda)
+        done = []
+        if self._cuda:
+            for sh in self._shards:
+                with sh.on("stream"):
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
         return [_Dispatched(q_host, sat_host, done, m)]
 
     def collect_chunk(self, outs: List[_Dispatched]) -> Iterator:
@@ -272,8 +316,9 @@ def get_executor(
     device: str = "cuda",
     save_type: str = "jpg",
     h5_f16: bool = False,
+    n_devices: int = 0,
 ) -> DeviceExecutor:
     key = (algorithm, height, width, step, bound, pair_batch, preset,
-           max_disp, width_bucket, device, save_type, h5_f16)
+           max_disp, width_bucket, device, save_type, h5_f16, n_devices)
     with _executor_lock:
         return _get_executor_locked(*key)

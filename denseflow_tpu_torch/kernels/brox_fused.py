@@ -271,12 +271,14 @@ def _launch(I0, I1, u, v, *, alpha, gamma, inner_iterations, outer_iterations,
     scratch = torch.empty((b, plan.scratch_planes, h, w), dtype=torch.float32,
                           device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    rc = _lib().brox_scale_launch(
-        I0.data_ptr(), I1.data_ptr(), u.data_ptr(), v.data_ptr(),
-        uo.data_ptr(), vo.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
-        b, h, w, _f32(alpha), _f32(gamma), _f32(max_disp),
-        _threshold(stop_eps, h, w), PSI_EPS2, int(inner_iterations),
-        int(outer_iterations), int(solver_iterations), *_c_plan(plan), stream)
+    # the C side sets attributes and launches on the current card
+    with torch.cuda.device(u.device):
+        rc = _lib().brox_scale_launch(
+            I0.data_ptr(), I1.data_ptr(), u.data_ptr(), v.data_ptr(),
+            uo.data_ptr(), vo.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
+            b, h, w, _f32(alpha), _f32(gamma), _f32(max_disp),
+            _threshold(stop_eps, h, w), PSI_EPS2, int(inner_iterations),
+            int(outer_iterations), int(solver_iterations), *_c_plan(plan), stream)
     if rc == -1:
         raise ValueError(f"brox_scale: the kernel does not take {plan} at {h}x{w}")
     if rc != 0:

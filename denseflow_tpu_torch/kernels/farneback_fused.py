@@ -196,12 +196,14 @@ def poly_expand(
             continue
         k = len(part)
         ints = lambda vals: (_I * k)(*vals)  # noqa: E731
-        rc = lib.farneback_polyexp_launch(
-            (_P * k)(*(i.data_ptr() for i, _ in part)),
-            (_P * k)(*(o.data_ptr() for _, o in part)),
-            ints(i.shape[0] for i, _ in part), ints(i.shape[1] for i, _ in part),
-            ints(i.shape[2] for i, _ in part), k, n, packed.ctypes.data,
-            _stream(levels[0]))
+        # the C side launches on the current card
+        with torch.cuda.device(levels[0].device):
+            rc = lib.farneback_polyexp_launch(
+                (_P * k)(*(i.data_ptr() for i, _ in part)),
+                (_P * k)(*(o.data_ptr() for _, o in part)),
+                ints(i.shape[0] for i, _ in part), ints(i.shape[1] for i, _ in part),
+                ints(i.shape[2] for i, _ in part), k, n, packed.ctypes.data,
+                _stream(levels[0]))
         if rc != 0:
             raise RuntimeError(f"poly_expand kernel launch failed: CUDA error {rc}")
         poly_expand.launches += 1
@@ -357,12 +359,15 @@ def _launch(R0, R1, u, v, *, win_size, num_iters, max_disp, stop_eps, plan=None)
     if plan.scratch_planes:
         scratch = torch.empty((b, plan.scratch_planes, h, w), dtype=torch.float32,
                               device=u.device)
-    rc = _level_lib().farneback_level_launch(
-        R0.data_ptr(), R1.data_ptr(), u.data_ptr(), v.data_ptr(),
-        uo.data_ptr(), vo.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        iters.data_ptr(),
-        b, h, w, int(win_size), int(num_iters), _f32(max_disp),
-        _f32(1.0 / win_size), _threshold(stop_eps, h, w), *_c_plan(plan), _stream(u))
+    # the C side sets attributes and launches on the current card
+    with torch.cuda.device(u.device):
+        rc = _level_lib().farneback_level_launch(
+            R0.data_ptr(), R1.data_ptr(), u.data_ptr(), v.data_ptr(),
+            uo.data_ptr(), vo.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, iters.data_ptr(),
+            b, h, w, int(win_size), int(num_iters), _f32(max_disp),
+            _f32(1.0 / win_size), _threshold(stop_eps, h, w), *_c_plan(plan),
+            _stream(u))
     if rc == -1:
         raise ValueError(f"farneback_level: the kernel does not take {plan} at "
                          f"{h}x{w} with window {win_size}")

@@ -269,13 +269,15 @@ def _launch(I0, I1, I1x, I1y, u1, u2, l_t, theta, taut, epsilon,
     scratch = torch.empty((b, plan.scratch_planes, h, w), dtype=torch.float32,
                           device=u1.device)
     stream = torch.cuda.current_stream(u1.device).cuda_stream
-    rc = _lib().tvl1_scale_launch(
-        *(p.data_ptr() for p in planes), u1o.data_ptr(), u2o.data_ptr(),
-        scratch.data_ptr(), counts.data_ptr(), b, h, w,
-        _f32(l_t), _f32(theta), _f32(taut), _threshold(epsilon, h, w),
-        _f32(max_disp), int(iterations), int(warps), int(check_every),
-        *_c_plan(plan, h, w), stream,
-    )
+    # the C side sets attributes and launches on the current card
+    with torch.cuda.device(u1.device):
+        rc = _lib().tvl1_scale_launch(
+            *(p.data_ptr() for p in planes), u1o.data_ptr(), u2o.data_ptr(),
+            scratch.data_ptr(), counts.data_ptr(), b, h, w,
+            _f32(l_t), _f32(theta), _f32(taut), _threshold(epsilon, h, w),
+            _f32(max_disp), int(iterations), int(warps), int(check_every),
+            *_c_plan(plan, h, w), stream,
+        )
     if rc == -1:
         raise ValueError(f"tvl1_scale: the kernel does not take {plan} at {h}x{w}")
     if rc != 0:

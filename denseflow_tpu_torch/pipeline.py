@@ -92,6 +92,9 @@ class Pipeline:
         self._native = native if cfg.save_type != "h5" and native.available() else None
         self.writer = "h5py" if cfg.save_type == "h5" else native.describe()
         self.log(f"writer: {self.writer}")
+        # the devices the pairs were split over, read from the first
+        # executor the compute stage ran (empty until it runs one)
+        self.devices: List = []
 
     # ---------------- stage 1: decode ----------------
     def _decode_pool_size(self) -> int:
@@ -207,7 +210,7 @@ class Pipeline:
         return get_executor(
             cfg.algorithm, height, width, cfg.step, cfg.bound,
             cfg.pair_batch, cfg.preset, max_disp, cfg.width_bucket,
-            cfg.device, cfg.save_type, cfg.h5_dtype == "f16",
+            cfg.device, cfg.save_type, cfg.h5_dtype == "f16", cfg.devices,
         )
 
     # Chunks dispatched to the device but not yet collected. 2 keeps the
@@ -304,6 +307,10 @@ class Pipeline:
                     break
                 try:
                     ex = self._executor(item.height, item.width, cfg.max_disp)
+                    if not self.devices:
+                        self.devices = list(ex.devices)
+                        self.log(f"devices: {', '.join(map(str, self.devices))} "
+                                 f"(--devices={cfg.devices})")
                     with self.timers.track("compute"):
                         outs = ex.dispatch_chunk(item.frames, item.n_frames)
                     pending.append((item, ex, outs))

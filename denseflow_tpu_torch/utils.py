@@ -35,6 +35,15 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def local_devices(name: str) -> "list[torch.device]":
+    """The devices `name` stands for, in index order: "cuda" every visible
+    card, "cuda:k" that card, "cpu" the CPU (raises as `resolve_device`)."""
+    dev = resolve_device(name)
+    if dev.type == "cuda" and torch.device(name).index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 class Counters:
     """Thread-safe run counters (total_frames / total_flows, like the
     reference's DenseFlow members)."""

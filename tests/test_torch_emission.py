@@ -472,6 +472,6 @@ def test_width_bucket_png_bound_spans_the_padded_columns(video):
     ex = DeviceExecutor("nv", 64, 80, 1, 8, 4, width_bucket=32, device="cpu", save_type="png")
     png = ex.run_chunk(frames, len(frames))
     assert png.shape == (8, 64, 80, 3) and png.dtype == np.uint8
-    flow = ex._solver(*(ex.upload_chunk(frames).frames[i:i + 8] for i in (0, 1)))
+    flow = ex._shards[0].solver(*(ex.upload_chunk(frames).frames[0][i:i + 8] for i in (0, 1)))
     want = tq.quantize_flow_png(flow)[..., :80, :].numpy()
     np.testing.assert_array_equal(png, want)

@@ -78,6 +78,9 @@ CONFIG_CASES = [
     dict(save_type="npy"),
     dict(pair_batch=0),
     dict(devices=-1),
+    dict(devices=0),
+    dict(devices=8, step=2),
+    dict(distributed=True, coordinator="127.0.0.1:1234"),
     dict(max_disp=-1),
     dict(h5_dtype="f64"),
     dict(width_bucket=-8),
@@ -111,20 +114,26 @@ def test_config_defaults_match():
     assert t.device == "cuda"
 
 
-@pytest.mark.parametrize("kw,flag,item", [
-    (dict(algorithm="brox", devices=2, step=-1), "--devices>1", "A10"),
-    (dict(devices=2), "--devices>1", "A10"),
-    (dict(distributed=True), "--distributed", "A10"),
+@pytest.mark.parametrize("kw", [
+    dict(algorithm="brox", devices=2, step=-1),
+    dict(devices=2),
+    dict(distributed=True),
 ])
-def test_unported_features_name_their_roadmap_item(kw, flag, item):
-    """Valid for the JAX package; refused here with the item that ports it."""
-    jcfg.FlowConfig(input="x", **kw).validate()
-    with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md {item}"):
+def test_multi_device_configs_validate_as_in_jax(kw):
+    """--devices>1 and --distributed are ported (A10): accepted wherever
+    the JAX package accepts them."""
+    for cfg in (jcfg, tcfg):
+        cfg.FlowConfig(input="x", **kw).validate()
+
+
+def test_port_validates_every_config_jax_does():
+    """Nothing is left unported: no refusal mechanism, and every config
+    of the matrix that the JAX package accepts, the port accepts."""
+    assert not hasattr(tcfg, "UNPORTED") and not hasattr(tcfg.FlowConfig, "check_ported")
+    valid = [kw for kw in CONFIG_CASES if _outcome(jcfg.FlowConfig, kw) is None]
+    assert len(valid) >= 10
+    for kw in valid + [dict(devices=8, distributed=True, coordinator="h:1")]:
         tcfg.FlowConfig(input="x", **kw).validate()
-
-
-def test_only_multi_device_features_stay_unported():
-    assert set(tcfg.UNPORTED) == {"devices", "distributed"}
 
 
 @pytest.mark.parametrize("kw", [

@@ -35,6 +35,8 @@ def test_every_module_imports_without_jax():
     assert "denseflow_tpu_torch.kernels._cluster" in mods
     assert "denseflow_tpu_torch.algorithms.brox" in mods
     assert "denseflow_tpu_torch.native" in mods
+    assert "denseflow_tpu_torch.parallel" in mods
+    assert "denseflow_tpu_torch.parallel.distributed" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,7 +63,7 @@ _IMPORT = re.compile(
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "executor_timing.py"],
 )
 def test_source_imports_no_jax(path):
     text = (ROOT / path).read_text()
