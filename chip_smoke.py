@@ -86,7 +86,19 @@ Phases (each prints its lines; any failure exits non-zero):
     one gloo group on 127.0.0.1 (DENSEFLOW_NUM_PROCESSES=2), on the card,
     over a list of two 100-frame cuts of the bench video: disjoint shards,
     both `.done` markers, one summary from host 0 with the global counts,
-    and files byte-identical to one process running the list.
+    and files byte-identical to one process running the list;
+17. the wire codecs (`--wirePack=1`): the native decoder built with g++
+    alone (its build time and the decoder that runs); the main path's
+    first chunk (127 pairs bucketed to 128, 256x341) through the tvl1
+    executor, jpg and png (v3) and h5 (v4): the card's pack equal to the
+    CPU pack of the same payload in bytes and in `used`, the native and
+    NumPy decodes equal to the raw payload, pack ms (CUDA events), raw
+    bytes against used, decode ms and one chunk's wall with --wirePack 0
+    and 1 (perf_counter); v4 on 128 pairs of 1080x1920 float32 noise,
+    whose `used` passes 2^31, bit-exact through the native decoder; and
+    the CLI with --wirePack=1 on the 500-frame video: the 998 jpgs of
+    phase 5 and the 499 pngs of --wirePack=0, file for file, with the
+    codec, decoder, bytes down and raw fallbacks of each run.
 
 Phases 5, 9, 12 and 14 print the writer that ran beside the stage times.
 Each phase prints its wall time. Every run of the CLI but phase 15's
@@ -1541,6 +1553,182 @@ def phase_distributed(work: Path, card: str) -> None:
         raise SystemExit("two hosts wrote other files than one process")
 
 
+# ---------------- the wire codecs ----------------
+
+WIRE_REPS = 5  # timed runs of each pack, decode and chunk wall
+
+
+def _median_s(fn, reps: int) -> float:
+    """Median wall seconds of fn() over `reps` runs after one warm-up, the
+    card synchronised after each (perf_counter)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def _wire_chunk(frames: np.ndarray, st: str, card: str) -> None:
+    """The main path's first chunk (127 pairs bucketed to 128) through the
+    tvl1 executor with -st=st and --wirePack=1 on the card: the shard's pack
+    against the CPU pack of the same payload (bytes of buf[:used], used),
+    both decoders against the payload, the times, and one chunk's wall with
+    --wirePack 0 and 1."""
+    import torch
+
+    import denseflow_tpu_torch.wire as W
+    from denseflow_tpu_torch.executor import DeviceExecutor
+    from denseflow_tpu_torch.native import wire as native_wire
+
+    tag = f"[wire {st}]"
+    n = len(frames)
+    ex = {pack: DeviceExecutor("tvl1", *frames.shape[1:], 1, 20, PAIR_BATCH, device=DEVICE,
+                               save_type=st, n_devices=1, wire_pack=pack)
+          for pack in (False, True)}
+    d = ex[True].dispatch_chunk(frames, n)[0]
+    d.wait()
+    p = d.packs[0]
+    q = p.q
+    m, c, h, w = q.shape if st != "h5" else (q.shape[0], 2, *q.shape[1:3])
+    if st == "h5":
+        pack = lambda t: W.pack_chunk_v4(t)
+        dec = {"native": lambda b: native_wire.wire_unpack_v4(b, m, h, w),
+               "numpy": lambda b: W.unpack_chunk_v4(b, m, h, w)}
+        same_q = lambda out: np.array_equal(out.view(np.uint32), q_cpu.numpy().view(np.uint32))
+    else:
+        pack = lambda t: W.pack_chunk_v3(t, W.EXC_CAP)
+        dec = {"native": lambda b: native_wire.wire_unpack_v3(b, m, c, h, w, W.EXC_CAP),
+               "numpy": lambda b: W.unpack_chunk_v3(b, m, c, h, w, W.EXC_CAP)}
+        same_q = lambda out: bool(out[0].all()) and np.array_equal(out[1], q_cpu.numpy())
+    buf, used = pack(q)
+    q_cpu = q.cpu()
+    cbuf, cused = pack(q_cpu)
+    used, cused = int(used), int(cused)
+    card_bytes = buf[:used].cpu().numpy()
+    same = (used == cused == int(p.used)
+            and np.array_equal(card_bytes, cbuf[:cused].numpy())
+            and np.array_equal(card_bytes, p.buf[:used].cpu().numpy()))
+    pack_ms = cuda_ms(lambda: pack(q), WIRE_REPS)
+    raw = q.nbytes
+    log(f"{tag} {m} pairs at {h}x{w} ({tuple(q.shape)} {str(q.dtype).split('.')[-1]}): the "
+        f"card's pack equals the CPU pack: {same} (used {used} / {cused} bytes); "
+        f"pack {pack_ms:.6g} ms on the card; raw {raw} bytes against used {used} "
+        f"({raw / used:.4g}x); {card}")
+    if not same:
+        raise SystemExit(f"{tag} the card's pack differs from the CPU pack")
+    for name, fn in dec.items():
+        t = _median_s(lambda: fn(card_bytes), WIRE_REPS)
+        ok = same_q(fn(card_bytes))
+        log(f"{tag} {name} decode of buf[:used] {t * 1e3:.6g} ms (median of {WIRE_REPS}); "
+            f"equal to the raw payload: {ok}")
+        if not ok:
+            raise SystemExit(f"{tag} the {name} decode differs from the raw payload")
+    walls = {}
+    for pk, e in ex.items():
+        want = e.run_chunk(frames, n)
+        walls[pk] = _median_s(lambda: e.run_chunk(frames, n), WIRE_REPS)
+        walls[f"out{int(pk)}"] = want
+    a, b = walls["out0"], walls["out1"]
+    equal = all(np.array_equal(x, y) for x, y in zip(a, b)) if st == "jpg" else \
+        np.array_equal(np.asarray(a).view(np.uint32 if st == "h5" else np.uint8),
+                       np.asarray(b).view(np.uint32 if st == "h5" else np.uint8))
+    log(f"{tag} one {n}-frame chunk through run_chunk (median of {WIRE_REPS}): "
+        f"--wirePack=0 {walls[False]:.6g} s, --wirePack=1 {walls[True]:.6g} s "
+        f"(decoder {W.decoder()}); payloads equal: {equal}; {card}")
+    if not equal:
+        raise SystemExit(f"{tag} the packed chunk's payload differs from the raw one")
+
+
+def phase_wire(video: Path, work: Path, card: str) -> None:
+    """The wire codecs on the card: the decoder's build with g++ alone, the
+    main path's first chunk (jpg and png; h5 too) packed on the card against
+    the CPU, decoded by both decoders, timed; a 128-pair 1080x1920 float32
+    noise chunk whose v4 `used` passes 2^31; and the CLI with --wirePack=1
+    on the 500-frame video against --wirePack=0, file for file."""
+    import torch
+
+    import denseflow_tpu_torch.wire as W
+    from denseflow_tpu_torch.cli import parse_args, run
+    from denseflow_tpu_torch.kernels import _build
+    from denseflow_tpu_torch.native import wire as native_wire
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    t0 = time.perf_counter()
+    ok = native_wire.wire_available()
+    log(f"[wire] {gxx.stdout.splitlines()[0] if gxx.returncode == 0 else 'no g++'}; "
+        f"native/wire.cpp with {' '.join(_build.GXX_FLAGS + _build.WIRE_LIBS)} built "
+        f"in {time.perf_counter() - t0:.3g} s: {ok}; decoder {W.decoder()}")
+    if not ok:
+        raise SystemExit(f"the wire decoder did not build:\n{native_wire.wire_build_error()}")
+    frames = first_chunk(video, CHUNK_FRAMES)
+    for st in ("jpg", "png", "h5"):
+        _wire_chunk(frames, st, card)
+
+    # v4 past 2^31: 128 pairs of 1080x1920 float32 noise
+    m, h, w = 128, 1080, 1920
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    flow = torch.randn((m, h, w, 2), device=DEVICE, generator=gen)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    buf, used = W.pack_chunk_v4(flow)
+    end.record()
+    torch.cuda.synchronize()
+    pack_ms = start.elapsed_time(end)
+    used = int(used)
+    host = buf[:used].cpu().numpy()
+    del buf
+    t0 = time.perf_counter()
+    out = native_wire.wire_unpack_v4(host, m, h, w)
+    dec_s = time.perf_counter() - t0
+    exact = np.array_equal(out.view(np.uint32), flow.cpu().numpy().view(np.uint32))
+    log(f"[wire v4 1080p] {m} pairs at {h}x{w} float32 noise: used {used} bytes "
+        f"(> 2^31: {used > 2 ** 31}; max {W.v4_max_size(m, h, w)}, raw {flow.nbytes}); "
+        f"pack {pack_ms:.6g} ms on the card (one run, the first at this shape); native "
+        f"decode {dec_s:.6g} s; bit-exact: {exact}; {card}")
+    del flow, out, host
+    torch.cuda.empty_cache()
+    if not (exact and used > 2 ** 31):
+        raise SystemExit("v4 did not round-trip a chunk past 2^31 bytes bit-exact")
+
+    # the CLI, file for file; phase 5 wrote the --wirePack=0 jpgs
+    files = {("jpg", 0): {p.name: p.read_bytes()
+                          for p in sorted((work / "out_tvl1" / video.stem).iterdir())}}
+    for st, pk in (("jpg", 1), ("png", 0), ("png", 1)):
+        out_root = work / f"out_wire_{st}{pk}"
+        cfg = parse_args([str(video), f"-o={out_root}", "-a=tvl1", "-s=1", "-b=20",
+                          f"-st={st}", "-ns=256", "--strict", f"--device={DEVICE}",
+                          ONE_CARD, f"--wirePack={pk}"])
+        stats: dict = {}
+        if run(cfg, stats_out=stats) != 0 or stats["errors"]:
+            raise SystemExit(f"--wirePack={pk} -st={st} failed: {stats.get('errors')}")
+        wire = stats["wire"]
+        n_flows = stats["counters"].total_flows
+        log(f"[wire cli] -st={st} --wirePack={pk}: {n_flows} flows in {stats['wall_s']:.6g} s "
+            f"= {n_flows / stats['wall_s']:.6g} flows/s; stage times "
+            + ", ".join(f"{k} {v:.6g} s" for k, v in sorted(stats["stage_times"].items()))
+            + f"; writer {stats['writer']}; wire {wire['codec']} (decoder {wire['decoder']}), "
+            f"{wire['d2h_bytes']} bytes down in {wire['d2h_calls']} copies, "
+            f"{wire['fallbacks']} raw fallbacks; {card}")
+        if wire["codec"] != ("v3" if pk else "raw"):
+            raise SystemExit(f"--wirePack={pk} -st={st} ran the codec {wire['codec']}")
+        files[(st, pk)] = {p.name: p.read_bytes()
+                           for p in sorted((out_root / video.stem).iterdir())}
+        shutil.rmtree(out_root)
+    for st, n_want in (("jpg", 2 * (N_FRAMES - 1)), ("png", N_FRAMES - 1)):
+        same = files[(st, 1)] == files[(st, 0)]
+        log(f"[wire cli] -st={st}: --wirePack=1 wrote {len(files[(st, 1)])} files, "
+            f"byte-identical to --wirePack=0's {len(files[(st, 0)])}: {same}")
+        if len(files[(st, 0)]) != n_want or not same:
+            raise SystemExit(f"--wirePack=1 wrote other {st} files than --wirePack=0")
+
+
 def timed(n: int, fn, *args):
     """fn(*args), then phase n's wall time."""
     t0 = time.perf_counter()
@@ -1612,6 +1800,7 @@ def main() -> int:
         timed(14, phase_save_types, video, work, card, tvl1_scale)
         timed(15, phase_devices, video, work, card, kernels)
         timed(16, phase_distributed, work, card)
+        timed(17, phase_wire, video, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for r in records:

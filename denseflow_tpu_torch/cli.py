@@ -8,7 +8,7 @@ including OpenCV CommandLineParser's `-key=value` syntax:
 
 plus extensions: --pairBatch, --chunkFrames, --strict,
 --hostId/--numHosts (video-list sharding across hosts), --distributed,
---devices, --preset, --device. The port of the JAX package's
+--devices, --preset, --wirePack, --device. The port of the JAX package's
 `denseflow_tpu/cli.py`: the same flags and help.
 
     python -m denseflow_tpu_torch <video> -a=tvl1 -s=1 -b=20 -st=jpg -ns=256
@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 from denseflow_tpu_torch import native
 from denseflow_tpu_torch.config import FlowConfig
+from denseflow_tpu_torch.executor import WIRE_STATS
 from denseflow_tpu_torch.extract_frames import extract_frames_only
 from denseflow_tpu_torch.io.reader import expand_jobs
 from denseflow_tpu_torch.parallel.distributed import (
@@ -36,6 +37,7 @@ from denseflow_tpu_torch.utils import (
     format_summary,
     resolve_device,
 )
+from denseflow_tpu_torch.wire import decoder as wire_decoder
 
 HELP = """GPU optical flow extraction. (PyTorch + CUDA port of denseflow_tpu)
 Usage: denseflow [params] input
@@ -93,10 +95,13 @@ Extensions:
                                every card's sub-slabs): --devices=1 keeps
                                one card's speed
     --profile=DIR              capture a torch.profiler trace into DIR
-    --wirePack (value:1)       accepted, no effect: the payload crosses to
-                               the host as it is, and the codecs of
-                               denseflow_tpu are lossless, so the files are
-                               the same
+    --wirePack (value:0)       lossless packing of the payload on the card
+                               before its copy to the host (v3 for jpg/png,
+                               v4 for h5 f32; same files). Off by default,
+                               unlike denseflow_tpu's 1: the codecs are for
+                               a slow remote device link, and over PCIe
+                               they add host decode work to a wall the
+                               host's decode and encode already hold
     --maxDisp (value:0)        finest-level displacement clamp in px
                                (0 = solver default 40); raise for very
                                fast motion at high resolution
@@ -187,9 +192,11 @@ def parse_args(argv: List[str]) -> Optional[FlowConfig]:
 def run(cfg: FlowConfig, stats_out: "dict | None" = None) -> int:
     """Execute a parsed config. stats_out (optional) receives run
     telemetry: per-stage wall times, counters, wall seconds, the writer
-    that ran ("native, k threads", "cv2: <why>" or "h5py") and the devices
-    the pairs were split over, so a caller can attribute the headline
-    number to stages without parsing stdout."""
+    that ran ("native, k threads", "cv2: <why>" or "h5py"), the devices
+    the pairs were split over and, for a flow run, the wire codec that ran
+    (`wire`: codec "v3", "v4" or "raw", its host decoder, and this run's
+    bytes and copies up and down and raw fallbacks), so a caller can
+    attribute the headline number to stages without parsing stdout."""
     cfg.validate()
     if cfg.step != 0:
         resolve_device(cfg.device)  # no card for "cuda": raise before work
@@ -215,6 +222,7 @@ def _run(cfg: FlowConfig, stats_out: "dict | None") -> int:
 
     prof = _start_profile(cfg) if cfg.profile_dir else None
     start_t = current_seconds()
+    wire = None
     try:
         if cfg.step == 0:
             writer = native.describe()
@@ -225,14 +233,20 @@ def _run(cfg: FlowConfig, stats_out: "dict | None") -> int:
             errors: list = []
             devices: list = []
         else:
+            link0 = WIRE_STATS.snapshot()
             pipe = Pipeline(cfg, jobs, is_record)
             pipe.launch()
             writer = pipe.writer
             devices = [str(d) for d in pipe.devices]
             counters = pipe.counters
             errors = pipe.errors
+            wire = _wire_stats(pipe.codec, link0)
             if cfg.verbose and pipe.timers.totals:
                 print(f"stage times: {pipe.timers.summary()}")
+            if cfg.verbose:
+                print(f"wire: {wire['codec']} (decoder {wire['decoder']}), "
+                      f"{wire['d2h_bytes']} bytes down in {wire['d2h_calls']} "
+                      f"copies, {wire['fallbacks']} raw fallbacks")
             if stats_out is not None:
                 stats_out["stage_times"] = dict(pipe.timers.totals)
         end_t = current_seconds()
@@ -245,6 +259,7 @@ def _run(cfg: FlowConfig, stats_out: "dict | None") -> int:
         stats_out["errors"] = list(errors)
         stats_out["writer"] = writer
         stats_out["devices"] = devices
+        stats_out["wire"] = wire
     n_videos, n_frames, n_flows = len(jobs), counters.total_frames, counters.total_flows
     print_it = True
     if cfg.distributed:
@@ -264,6 +279,17 @@ def _run(cfg: FlowConfig, stats_out: "dict | None") -> int:
             print(f"  {e.video_path}: {e.error.splitlines()[-1]}", file=sys.stderr)
         return 1
     return 0
+
+
+def _wire_stats(codec: "str | None", link0: dict) -> dict:
+    """The run's wire record: the codec the executors ran ("v3", "v4",
+    "raw"; None when no chunk ran), the host decoder of a packed codec,
+    and WIRE_STATS' counts since `link0`."""
+    link = WIRE_STATS.snapshot()
+    out = {k: link[k] - link0[k] for k in link}
+    out["codec"] = codec
+    out["decoder"] = wire_decoder() if codec in ("v3", "v4") else "none"
+    return out
 
 
 def _start_profile(cfg: FlowConfig):

@@ -62,11 +62,12 @@ class FlowConfig:
     # Local devices to spread each pair batch over (0 = all local devices,
     # N = the first N of them; executor.DeviceExecutor).
     devices: int = 0
-    # Accepted for flag compatibility and has no effect: the payload crosses
-    # to the host as it is (uint8 planes, or the h5 path's floats), and the
-    # JAX package's wire codecs are lossless, so the bytes on disk are the
-    # same either way.
-    wire_pack: bool = True
+    # Lossless wire codecs for the device->host payload (wire.py): v3 for
+    # jpg/png, v4 for h5 float32; the files are the same either way. Off by
+    # default, unlike the JAX package's: the codecs exist for a slow remote
+    # device link, and over a card's PCIe they add host decode work to a
+    # wall that the host's decode and encode already hold.
+    wire_pack: bool = False
     # Capture a torch.profiler trace of the run into this directory.
     profile_dir: Optional[str] = None
     # Host-side sharding (multi-process): assign videos round-robin by index.

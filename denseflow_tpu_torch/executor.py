@@ -29,9 +29,17 @@ CUDA devices:
   the arrival, so the pipeline dispatches chunk i+1 before it waits for
   chunk i, and the host reads global pair order as it is.
 
-The payload crosses as it is: the JAX package's wire codecs exist for a
-remote-device link and are lossless (the uint8 codec and the h5 path's
-float32 codec alike), so the bytes on disk are the same.
+With `wire_pack` (`--wirePack=1`) the payload crosses packed by the
+lossless wire codecs (wire.py), as the JAX package's executor does it: v3
+for jpg and png while the 3-byte exception index holds the pair's deltas
+(n_chan*H*(W-1) < 2^24), v4 for h5 float32 (f16 stays raw). Each shard
+keeps its sub-slabs' payload on its device, packs it in shard-local pair
+order on its own stream after the chunk's last slab, and copies `used`
+to pinned host memory; `collect_chunk` copies `buf[:used]`, decodes it
+(the native decoder where g++ built it, else NumPy) and puts the pairs at
+their global offsets. A v3 pair over EXC_CAP escapes brings that shard's
+raw payload down, kept on the device for it. The bytes on disk are those
+of a run without the codec. `WIRE_STATS` counts the bytes that cross.
 On the CPU (device="cpu") the same steps run synchronously.
 """
 
@@ -49,6 +57,61 @@ import torch
 from denseflow_tpu_torch.algorithms import make_solver
 from denseflow_tpu_torch.quantize import quantize_flow_pair, quantize_flow_png
 from denseflow_tpu_torch.utils import local_devices
+from denseflow_tpu_torch.wire import (
+    EXC_CAP,
+    pack_chunk_v3,
+    pack_chunk_v4,
+    unpack_chunk_v3_fast,
+    unpack_chunk_v4_fast,
+)
+
+
+class WireStats:
+    """Process-wide device-link byte counters, as the JAX package's
+    (`denseflow_tpu/executor.py:67-105`), plus the raw fallbacks of the v3
+    codec. Counted where the port copies frames up (each device's copy)
+    and payloads down (each copy: a sub-slab's raw payload, a shard's
+    `used` and `buf[:used]`, a fallback's raw payload); on the CPU, where
+    nothing is copied, the same bytes are counted."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.h2d_bytes = 0
+            self.h2d_calls = 0
+            self.d2h_bytes = 0
+            self.d2h_calls = 0
+            self.fallbacks = 0
+
+    def add_h2d(self, nbytes: int) -> None:
+        with self._lock:
+            self.h2d_bytes += int(nbytes)
+            self.h2d_calls += 1
+
+    def add_d2h(self, nbytes: int) -> None:
+        with self._lock:
+            self.d2h_bytes += int(nbytes)
+            self.d2h_calls += 1
+
+    def add_fallback(self) -> None:
+        with self._lock:
+            self.fallbacks += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "h2d_bytes": self.h2d_bytes,
+                "h2d_calls": self.h2d_calls,
+                "d2h_bytes": self.d2h_bytes,
+                "d2h_calls": self.d2h_calls,
+                "fallbacks": self.fallbacks,
+            }
+
+
+WIRE_STATS = WireStats()
 
 
 @dataclass
@@ -61,11 +124,22 @@ class ResidentChunk:
 
 
 @dataclass
+class _Packed:
+    """One shard's packed payload."""
+
+    buf: torch.Tensor  # the wire buffer, on the shard's device
+    used: torch.Tensor  # () int64, host (pinned on CUDA): buf[:used] matters
+    q: torch.Tensor  # the raw payload in shard-local pair order, on the device
+
+
+@dataclass
 class _Dispatched:
-    q: torch.Tensor  # the chunk's payload (see _solve_q), host (pinned on CUDA)
+    q: "torch.Tensor | None"  # the chunk's raw payload (see _solve_q), host
+    # (pinned on CUDA); None when it crosses packed
     sat: torch.Tensor  # (mb,) float32, host
     done: List["torch.cuda.Event"]  # one a shard on CUDA, none on the CPU
     m: int  # real pairs
+    packs: List[_Packed]  # one a shard with the codec on, else empty
 
     def wait(self) -> None:
         for e in self.done:
@@ -112,6 +186,7 @@ class DeviceExecutor:
         save_type: str = "jpg",
         h5_f16: bool = False,
         n_devices: int = 0,
+        wire_pack: bool = False,
     ) -> None:
         self.height = height
         self.w_real = width
@@ -128,6 +203,19 @@ class DeviceExecutor:
         # fewer exist, as the JAX package takes them)
         devs = local_devices(device)
         self.devices = devs[:n_devices] if n_devices > 0 else devs
+        # channels of the uint8 payload; the wire codecs as the JAX package
+        # guards them (denseflow_tpu/executor.py:164-185): v3 addresses an
+        # escape by a 3-byte flat index within the pair, so it needs
+        # n_chan*H*(W-1) < 2^24 (4K png falls back to raw); v4 takes the h5
+        # float32 flow; the f16 copy stays raw (already half size, its low
+        # bytes noise)
+        self.n_chan = {"jpg": 2, "png": 3}.get(save_type, 0)
+        self.wire_pack = (
+            bool(wire_pack) and save_type in ("jpg", "png")
+            and self.n_chan * height * max(width - 1, 0) < (1 << 24)
+        )
+        self.wire_f32 = bool(wire_pack) and save_type == "h5" and not self.h5_f16
+        self.codec = "v3" if self.wire_pack else "v4" if self.wire_f32 else "raw"
         self.n_dev = len(self.devices)
         # pair-batch slab: a multiple of the device count so every device
         # gets an equal share of every slab
@@ -176,6 +264,8 @@ class DeviceExecutor:
             pad = np.repeat(frames[-1:], n_pad - n, axis=0)
             frames = np.concatenate([frames, pad], axis=0)
         host = torch.from_numpy(np.ascontiguousarray(frames))
+        for _ in self._shards:
+            WIRE_STATS.add_h2d(host.nbytes)
         if not self._cuda:
             return ResidentChunk([host] * self.n_dev, [None] * self.n_dev)
         host = host.pin_memory()
@@ -208,8 +298,9 @@ class DeviceExecutor:
         return quantize_flow_png(flow).movedim(-1, 1), sat
 
     def dispatch_chunk(self, frames, n_frames: int) -> List[_Dispatched]:
-        """Queue the whole chunk's solve and the copy of its payload to the
-        host; `collect_chunk` waits for it. frames: a `ResidentChunk` from
+        """Queue the whole chunk's solve and the copy of its payload (or,
+        with the codec, its pack and the copy of `used`) to the host;
+        `collect_chunk` waits for it. frames: a `ResidentChunk` from
         `upload_chunk` (a raw np array is uploaded here). n_frames: the
         chunk's REAL frame count incl. halo; padded pairs are dropped."""
         m = n_frames - self.astep
@@ -223,27 +314,84 @@ class DeviceExecutor:
                     torch.cuda.current_stream().wait_event(ready)
                     f.record_stream(torch.cuda.current_stream())
         mb = frames.frames[0].shape[0] - self.astep
+        packing = self.wire_pack or self.wire_f32
         q_host = sat_host = None
+        q_loc = [None] * self.n_dev  # with the codec: each shard's payload
         # slab-major, so every device has work queued after the first slab
-        for s in range(0, mb, self.B):
+        for j, s in enumerate(range(0, mb, self.B)):
             for r, (sh, f) in enumerate(zip(self._shards, frames.frames)):
                 lo = s + r * self.b_loc  # this shard's pairs of the slab
                 with sh.on("stream"):
                     q, sat = self._solve_q(sh, f, lo, self.b_loc)
+                    if sat_host is None:
+                        sat_host = torch.empty((mb,), dtype=sat.dtype,
+                                               pin_memory=self._cuda)
+                    sat_host[lo:lo + self.b_loc].copy_(sat, non_blocking=self._cuda)
+                    if packing:
+                        if q_loc[r] is None:
+                            q_loc[r] = torch.empty((mb // self.n_dev,) + q.shape[1:],
+                                                   dtype=q.dtype, device=sh.device)
+                        q_loc[r][j * self.b_loc:(j + 1) * self.b_loc] = q
+                        continue
                     if q_host is None:
                         q_host = torch.empty((mb,) + q.shape[1:], dtype=q.dtype,
                                              pin_memory=self._cuda)
-                        sat_host = torch.empty((mb,), dtype=sat.dtype,
-                                               pin_memory=self._cuda)
                     q_host[lo:lo + self.b_loc].copy_(q, non_blocking=self._cuda)
-                    sat_host[lo:lo + self.b_loc].copy_(sat, non_blocking=self._cuda)
-        done = []
-        if self._cuda:
-            for sh in self._shards:
-                with sh.on("stream"):
+                    WIRE_STATS.add_d2h(q.nbytes)
+        packs, done = [], []
+        for sh, q in zip(self._shards, q_loc):
+            with sh.on("stream"):
+                if packing:
+                    buf, used = (pack_chunk_v4(q) if self.wire_f32
+                                 else pack_chunk_v3(q, EXC_CAP))
+                    used_host = torch.empty((), dtype=torch.int64, pin_memory=self._cuda)
+                    used_host.copy_(used, non_blocking=self._cuda)
+                    WIRE_STATS.add_d2h(used_host.nbytes)
+                    packs.append(_Packed(buf, used_host, q))
+                if self._cuda:
                     done.append(torch.cuda.Event())
                     done[-1].record()
-        return [_Dispatched(q_host, sat_host, done, m)]
+        return [_Dispatched(q_host, sat_host, done, m, packs)]
+
+    def _to_host(self, sh: _Shard, t: torch.Tensor) -> np.ndarray:
+        """A blocking copy of shard `sh`'s device tensor `t` to the host,
+        counted in WIRE_STATS."""
+        WIRE_STATS.add_d2h(t.nbytes)
+        if not self._cuda:
+            return t.numpy()
+        with sh.on("stream"):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+        return host.numpy()
+
+    def _unpack(self, d: _Dispatched) -> np.ndarray:
+        """The chunk's payload in global pair order from its shards' packed
+        buffers: each shard's `buf[:used]` copied down and decoded, its
+        pairs put at their global offsets; a shard whose real v3 pairs
+        overflowed the exception channel brings its raw payload down."""
+        out = None
+        for r, (sh, p) in enumerate(zip(self._shards, d.packs)):
+            arr = self._to_host(sh, p.buf[:int(p.used)])
+            m_loc = p.q.shape[0]
+            # local pair i of shard r is global pair (i // b_loc) * B +
+            # r * b_loc + i % b_loc (dispatch_chunk's slab-major split)
+            i = np.arange(m_loc)
+            gidx = (i // self.b_loc) * self.B + r * self.b_loc + i % self.b_loc
+            if self.wire_f32:
+                q = unpack_chunk_v4_fast(arr, m_loc, self.height, self.width)
+            else:
+                flags, q = unpack_chunk_v3_fast(arr, m_loc, self.n_chan, self.height,
+                                                self.width, EXC_CAP)
+                if not flags[gidx < d.m].all():
+                    q = self._to_host(sh, p.q)
+                    WIRE_STATS.add_fallback()
+            if self.n_dev == 1:
+                return q
+            if out is None:
+                out = np.empty((len(d.sat),) + q.shape[1:], q.dtype)
+            out[gidx] = q
+        return out
 
     def collect_chunk(self, outs: List[_Dispatched]) -> Iterator:
         """Yield (payload, pair_offset, n_pairs) per dispatched chunk,
@@ -251,7 +399,7 @@ class DeviceExecutor:
         png -> (m, H, W, 3) uint8; h5 -> (m, H, W, 2) float32."""
         for d in outs:
             d.wait()
-            q = d.q.numpy()[: d.m]
+            q = (self._unpack(d) if d.packs else d.q.numpy())[: d.m]
             if self.save_type == "h5":
                 yield np.asarray(q[:, :, : self.w_real], np.float32), 0, d.m
             elif self.save_type == "jpg":
@@ -317,8 +465,10 @@ def get_executor(
     save_type: str = "jpg",
     h5_f16: bool = False,
     n_devices: int = 0,
+    wire_pack: bool = False,
 ) -> DeviceExecutor:
     key = (algorithm, height, width, step, bound, pair_batch, preset,
-           max_disp, width_bucket, device, save_type, h5_f16, n_devices)
+           max_disp, width_bucket, device, save_type, h5_f16, n_devices,
+           bool(wire_pack))
     with _executor_lock:
         return _get_executor_locked(*key)

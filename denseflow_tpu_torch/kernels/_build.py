@@ -2,10 +2,11 @@
 
 Each CUDA kernel `csrc/<name>.cu` has a plain C interface and is compiled
 with `nvcc` for sm_90a; the host emitter `native/emitter.cpp` is compiled
-with `g++` against libjpeg and libpng. Each goes into a shared library under
-`build/denseflow_tpu_torch/` beside the package (the file name carries a
-hash of the source, the headers it may include, the flags and the
-libraries, so an edit rebuilds), then is loaded with ctypes. A build writes
+with `g++` against libjpeg and libpng, and the wire decoders
+`native/wire.cpp` with `g++` and -lpthread alone. Each goes into a shared
+library under `build/denseflow_tpu_torch/` beside the package (the file
+name carries a hash of the source, the headers it may include, the flags
+and the libraries, so an edit rebuilds), then is loaded with ctypes. A build writes
 a temporary file and moves it in with `os.replace`, so processes that build
 the same library at once do not see a half-written one. Nothing is compiled
 when the package is imported: the first call that needs a library builds it.
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall")
 EMITTER_LIBS = ("-ljpeg", "-lpng", "-lz", "-lpthread")
+WIRE_LIBS = ("-lpthread",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -75,11 +77,14 @@ class Recipe:
 
 
 def recipe(name: str) -> Recipe:
-    """The recipe of library `name`: "emitter", or the kernel csrc/<name>.cu
-    (with the shared csrc/*.cuh headers)."""
+    """The recipe of library `name`: "emitter", "wire" (a library of its
+    own, so that the decoders build where libjpeg and libpng do not), or
+    the kernel csrc/<name>.cu (with the shared csrc/*.cuh headers)."""
     if name == "emitter":
         return Recipe(_gxx, GXX_FLAGS, PKG / "native" / "emitter.cpp",
                       libs=EMITTER_LIBS)
+    if name == "wire":
+        return Recipe(_gxx, GXX_FLAGS, PKG / "native" / "wire.cpp", libs=WIRE_LIBS)
     return Recipe(_nvcc, NVCC_FLAGS, CSRC / f"{name}.cu",
                   tuple(sorted(CSRC.glob("*.cuh"))))
 

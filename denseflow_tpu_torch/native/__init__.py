@@ -67,14 +67,18 @@ def build_error() -> Optional[str]:
     return _error
 
 
+def first_error_line(error: Optional[str]) -> str:
+    """The line of a failed build's message that says what failed."""
+    lines = [ln.strip() for ln in (error or "").splitlines() if ln.strip()]
+    return next((ln for ln in lines[1:] if "error" in ln), lines[0] if lines else "")
+
+
 def describe() -> str:
     """The jpg/png writer that runs: "native, k threads", or "cv2: <the
     first error line of the failed build>"."""
     if available():
         return f"native, {DEFAULT_THREADS} threads"
-    lines = [ln.strip() for ln in (_error or "").splitlines() if ln.strip()]
-    why = next((ln for ln in lines[1:] if "error" in ln), lines[0] if lines else "")
-    return f"cv2: emitter not built ({why})"
+    return f"cv2: emitter not built ({first_error_line(_error)})"
 
 
 def _paths_blob(paths: Sequence[str], n: int) -> bytes:

@@ -92,9 +92,11 @@ class Pipeline:
         self._native = native if cfg.save_type != "h5" and native.available() else None
         self.writer = "h5py" if cfg.save_type == "h5" else native.describe()
         self.log(f"writer: {self.writer}")
-        # the devices the pairs were split over, read from the first
-        # executor the compute stage ran (empty until it runs one)
+        # the devices the pairs were split over and the wire codec of the
+        # payload ("v3", "v4" or "raw"), read from the first executor the
+        # compute stage ran (empty / None until it runs one)
         self.devices: List = []
+        self.codec: Optional[str] = None
 
     # ---------------- stage 1: decode ----------------
     def _decode_pool_size(self) -> int:
@@ -211,6 +213,7 @@ class Pipeline:
             cfg.algorithm, height, width, cfg.step, cfg.bound,
             cfg.pair_batch, cfg.preset, max_disp, cfg.width_bucket,
             cfg.device, cfg.save_type, cfg.h5_dtype == "f16", cfg.devices,
+            cfg.wire_pack,
         )
 
     # Chunks dispatched to the device but not yet collected. 2 keeps the
@@ -309,6 +312,7 @@ class Pipeline:
                     ex = self._executor(item.height, item.width, cfg.max_disp)
                     if not self.devices:
                         self.devices = list(ex.devices)
+                        self.codec = ex.codec
                         self.log(f"devices: {', '.join(map(str, self.devices))} "
                                  f"(--devices={cfg.devices})")
                     with self.timers.track("compute"):

@@ -37,6 +37,8 @@ def test_every_module_imports_without_jax():
     assert "denseflow_tpu_torch.native" in mods
     assert "denseflow_tpu_torch.parallel" in mods
     assert "denseflow_tpu_torch.parallel.distributed" in mods
+    assert "denseflow_tpu_torch.wire" in mods
+    assert "denseflow_tpu_torch.native.wire" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -70,11 +72,11 @@ def test_source_imports_no_jax(path):
     assert not _IMPORT.findall(text), f"{path} imports jax or denseflow_tpu"
 
 
-@pytest.mark.parametrize("name", ["emitter", "tvl1_scale", "farneback_polyexp",
+@pytest.mark.parametrize("name", ["emitter", "wire", "tvl1_scale", "farneback_polyexp",
                                   "farneback_level", "brox_scale"])
 def test_native_sources_lie_inside_the_port(name):
-    """Every library the port builds, the emitter included, compiles a
-    source (and headers) of the port's own, never one of denseflow_tpu/,
+    """Every library the port builds, the emitter and the wire decoders
+    included, compiles a source (and headers) of the port's own, never one of denseflow_tpu/,
     into build/denseflow_tpu_torch/."""
     from denseflow_tpu_torch.kernels import _build
 
