@@ -65,8 +65,10 @@ Phases (each prints its lines; any failure exits non-zero):
     versions, the CPU count and the emitter's threads; the emitter must
     build where the headers are (where they are not, phases 5, 9, 12 and 14
     print `writer cv2`); 998 textured 256x341 gray planes written by cv2
-    one by one and, where the emitter built, by `write_jpg_batch`, both
-    timed, each native jpg checked against tests/test_native.py's
+    one by one, by cv2's `write_batch` on the emitter's thread count (the
+    writer where the emitter does not build; byte-equal to one by one) and,
+    where the emitter built, by `write_jpg_batch`, each timed, each native
+    jpg checked against tests/test_native.py's
     tolerances and against cv2's bytes; 256x341 colour jpgs and lossless
     pngs;
 14. the png and h5 save types end to end, as phase 5 with `-st=png`,
@@ -1223,13 +1225,15 @@ def textured(n: int, h: int, w: int, seed: int, channels: int = 0) -> np.ndarray
 
 
 def phase_emitter(work: Path, card: str) -> None:
-    """The native emitter on this machine, against cv2 in the same call."""
+    """The native emitter on this machine, and cv2's pool, against cv2 on
+    one thread in the same call."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
     import cv2
 
     from denseflow_tpu_torch import native
-    from denseflow_tpu_torch.io.writer import encode_jpg, write_flow_images
+    from denseflow_tpu_torch.io.writer import encode_jpg, write_batch, write_flow_images
 
     versions, missing = probe_emitter_headers(work)
     log(f"[emitter] os.cpu_count() {os.cpu_count()}; the emitter's threads "
@@ -1243,6 +1247,20 @@ def phase_emitter(work: Path, card: str) -> None:
     t_cv2 = time.perf_counter() - t0
     log(f"[emitter] {n} gray {h}x{w} jpgs through cv2 encode_jpg + "
         f"write_flow_images, one thread: {t_cv2:.6g} s ({n / t_cv2:.6g} files/s); {card}")
+    pooled = work / "emit_pool"
+    pooled.mkdir()
+    paths = [str(pooled / f"flow_x_{i:05d}.jpg") for i in range(n)]
+    with ThreadPoolExecutor(native.DEFAULT_THREADS) as pool:
+        t0 = time.perf_counter()
+        write_batch(planes, paths, pool)
+        t_pool = time.perf_counter() - t0
+    same = sum(Path(p).read_bytes() == (ref / Path(p).name).read_bytes() for p in paths)
+    log(f"[emitter] the same jpgs through cv2 write_batch on {native.DEFAULT_THREADS} "
+        f"threads: {t_pool:.6g} s ({n / t_pool:.6g} files/s), {t_cv2 / t_pool:.4g}x one "
+        f"thread's; byte-equal to encode_jpg's {same} of {n}; {card}")
+    if same != n:
+        raise SystemExit("cv2 write_batch's jpgs differ from encode_jpg's")
+    shutil.rmtree(pooled)
     if missing is not None:
         log(f"[emitter] headers missing ({missing}): the writer is cv2")
         if native.available():

@@ -15,12 +15,15 @@ Byte-compatible with the reference's output contract, as the JAX package's
 * `.done/<class?>/<stem>` resume markers
   (reference src/denseflow_gpu.cpp:456-470, tools/denseflow.cpp:63-76).
 
-cv2 encodes here, one image at a time; the native emitter (native/) writes
-the same names from a worker pool where it is built.
+cv2 encodes here: one image at a time (`encode_jpg`, `encode_png`), or a
+batch on a pool of worker threads (`write_batch`), the same bytes either
+way; the native emitter (native/) writes the same names from its own
+worker pool where it is built.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import Executor, wait
 from pathlib import Path
 from typing import Sequence, Tuple
 
@@ -97,6 +100,27 @@ def encode_png(img: np.ndarray) -> bytes:
     if not ok:
         raise RuntimeError("png encode failed")
     return buf.tobytes()
+
+
+def _imwrite(path: str, img: np.ndarray) -> None:
+    if not cv2.imwrite(path, img):
+        raise RuntimeError(f"cv2 could not write {path}")
+
+
+def write_batch(
+    images: Sequence[np.ndarray], paths: Sequence[str], pool: Executor
+) -> None:
+    """Encode and write images[i] to paths[i], one task a file on `pool`'s
+    workers; cv2 picks jpg or png from the path and writes the bytes of
+    `encode_jpg` / `encode_png`. Each task is one cv2 call, which releases
+    the interpreter lock while it encodes and writes. Returns once every
+    task has ended; the first failure in path order raises here."""
+    if len(images) != len(paths):
+        raise ValueError(f"{len(images)} images but {len(paths)} paths")
+    futures = [pool.submit(_imwrite, p, im) for im, p in zip(images, paths)]
+    wait(futures)
+    for f in futures:
+        f.result()
 
 
 def create_h5_file(output_dir: str, step: int) -> str:

@@ -15,8 +15,9 @@ by design:
 
 The port of the JAX package's `denseflow_tpu/pipeline.py`. The writer
 stage encodes jpg and png through the native emitter (native/, a worker pool
-of libjpeg/libpng encoders) when it is built and through cv2 otherwise,
-with the same file names either way, and writes h5 through h5py.
+of libjpeg/libpng encoders) when it is built and otherwise through cv2 on a
+pool of `native.DEFAULT_THREADS` worker threads, with the same file names
+either way, and writes h5 through h5py.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import os
 import queue
 import threading
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
@@ -35,13 +37,10 @@ from denseflow_tpu_torch.executor import get_executor
 from denseflow_tpu_torch.io.reader import EmptyFolderError, Job, open_source
 from denseflow_tpu_torch.io.writer import (
     create_h5_file,
-    encode_jpg,
-    encode_png,
     flow_file_name,
     mark_done,
     step_base,
-    write_flow_images,
-    write_flow_images_png,
+    write_batch,
     write_hdf5,
 )
 from denseflow_tpu_torch.utils import Counters, StageTimers, VerboseLog
@@ -88,8 +87,13 @@ class Pipeline:
         self._flows_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         self._abort = threading.Event()
         # the jpg/png writer, chosen once: the native emitter where it is
-        # built, else cv2 (the same file names either way)
+        # built, else cv2 on a pool of the emitter's size (the same file
+        # names either way); stage 3 shuts the pool down when it ends
         self._native = native if cfg.save_type != "h5" and native.available() else None
+        self._encode_pool = (
+            ThreadPoolExecutor(native.DEFAULT_THREADS, thread_name_prefix="encode")
+            if cfg.save_type != "h5" and self._native is None else None
+        )
         self.writer = "h5py" if cfg.save_type == "h5" else native.describe()
         self.log(f"writer: {self.writer}")
         # the devices the pairs were split over and the wire codec of the
@@ -359,16 +363,17 @@ class Pipeline:
                     if cfg.strict:
                         self._abort.set()
         finally:
+            if self._encode_pool is not None:
+                self._encode_pool.shutdown()
             self.log("post process exit.")
 
     def _write_item(self, item: _FlowItem) -> None:
         cfg = self.cfg
         if item.payload is not None:
             if cfg.save_type == "jpg":
-                for prefix, planes in zip(("flow_x", "flow_y"), item.payload):
-                    self._write_images(item, prefix, planes, "jpg")
+                self._write_images(item, zip(("flow_x", "flow_y"), item.payload), "jpg")
             elif cfg.save_type == "png":
-                self._write_images(item, "flow", item.payload, "png")
+                self._write_images(item, [("flow", item.payload)], "png")
             else:
                 flow = item.payload
                 for c, phase in enumerate(("flow_x", "flow_y")):
@@ -382,25 +387,26 @@ class Pipeline:
             title = f"{out.parent.name}/{out.name}" if cfg.has_class else out.name
             print(f"done video {title}", flush=True)
 
-    def _write_images(self, item: _FlowItem, prefix: str, images, ext: str) -> None:
-        """Encode and write one image per pair: gray jpg planes (m, H, W) or
-        BGR png planes (m, H, W, 3), named `<prefix><infix>_%05d.<ext>`."""
+    def _write_images(self, item: _FlowItem, planes, ext: str) -> None:
+        """Encode and write one image per pair and prefix. `planes` holds
+        (prefix, images) with gray jpg planes (m, H, W) or BGR png planes
+        (m, H, W, 3), each image named `<prefix><infix>_%05d.<ext>`. The
+        emitter writes a prefix's planes as one batch; cv2 writes the whole
+        item as one batch on the pool. Returns once every file is written."""
         cfg = self.cfg
-        if self._native is not None:
-            base = item.base_start + step_base(cfg.step)
-            paths = [
-                f"{item.output_dir}/{flow_file_name(prefix, cfg.step, base + i, ext)}"
-                for i in range(images.shape[0])
-            ]
-            if ext == "jpg":
-                self._native.write_jpg_batch(images, paths)
-            else:
-                self._native.write_png_batch(images, paths)
+        base = item.base_start + step_base(cfg.step)
+        batches = [
+            (images, [f"{item.output_dir}/{flow_file_name(prefix, cfg.step, base + i, ext)}"
+                      for i in range(images.shape[0])])
+            for prefix, images in planes
+        ]
+        if self._native is None:
+            write_batch([im for images, _ in batches for im in images],
+                        [p for _, paths in batches for p in paths], self._encode_pool)
             return
-        encode, write = ((encode_jpg, write_flow_images) if ext == "jpg"
-                         else (encode_png, write_flow_images_png))
-        write([encode(im) for im in images], f"{item.output_dir}/{prefix}",
-              cfg.step, item.base_start)
+        write = self._native.write_jpg_batch if ext == "jpg" else self._native.write_png_batch
+        for images, paths in batches:
+            write(images, paths)
 
     # ---------------- run ----------------
     def _video_error(self, job: Job, e: Exception) -> None:

@@ -72,7 +72,7 @@ _IMPORT = re.compile(
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), *BENCH.rglob("*.py")])
-    + ["chip_smoke.py", "executor_timing.py"],
+    + ["chip_smoke.py", "encode_pool_timing.py", "executor_timing.py"],
 )
 def test_source_imports_no_jax(path):
     text = (ROOT / path).read_text()
